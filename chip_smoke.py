@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the serve lane on one NVIDIA H100.
+"""Drive the PyTorch port on one NVIDIA H100: the serve lane and training.
 
     python3 chip_smoke.py
 
@@ -11,19 +11,29 @@ failed phase ends the run with a non-zero exit code:
 2. build: ``nvcc`` builds every kernel of ``improved_body_parts_torch/csrc``
    for sm_90a (set-up time);
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the serve lane's shapes (batch 8, 640x896 maps, 18
-   keypoint channels, K=64, 30 limbs, M=128) with planted sparse peaks:
-   integer outputs exactly, float outputs within 1e-5; median times of
-   kernel and plain version;
+   the card.  The decode kernels at the serve lane's shapes (batch 8,
+   640x896 maps, 18 keypoint channels, K=64, 30 limbs, M=128) with planted
+   sparse peaks: integer outputs exactly, float outputs within 1e-5.  The
+   focal-loss kernels at the canonical training shapes (4 stacks, batch 4,
+   the 5 scales 128^2..8^2, 50 channels) on sparse GT and on a case
+   planted on the kink: the forward within rel 1e-5, the backward bit for
+   bit.  Median times of kernel and plain version;
 4. planted serve: a stub network that returns planted people's maps, a few
    requests of different sizes through ``Predictor.predict_decoded_batch``
    and ``decode_device``; every planted person decodes, keypoints within
    1 px;
 5. full width: the ``canonical`` IMHN (4 stacks, 128,998,760 parameters)
    from a seeded init in bf16 autocast, ``predict_decoded_batch`` on 8
-   images of 480x640 (the 640x896 bucket).  The kernels' launch counters
-   are set to 0 just before this run and read just after; every kernel
-   must have launched.
+   images of 480x640 (the 640x896 bucket).  The decode kernels' launch
+   counters are set to 0 just before this run and read just after; every
+   decode kernel must have launched;
+6. training at full width: ``canonical`` in train mode from a seeded init,
+   bf16 autocast, SGD; drawn synthetic people through the port's
+   ``Transformer`` + ``Heatmapper`` (augmented, 512x512, batch 4, uint8
+   wire) into ``make_train_step`` + ``train_epoch``: 2 warm-up steps, then
+   10 timed steps with the focal kernels' counters set to 0 just before
+   and read just after (5 launches a step each).  Losses finite, params
+   and BN running stats moved, every step counted.
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` line
 again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -178,6 +188,295 @@ def compare(name, got, want, int_fields):
                   f"{name}: float output {i} off by {err}")
             worst = max(worst, err)
     return worst
+
+
+def focal_kernels(cfg, dev):
+    """Phase 3 for the focal-loss kernels: forward and backward against
+    their plain versions at the canonical training shapes, on sparse GT
+    (as ``pallas_focal.parity_benchmark`` builds it) and on a case planted
+    on the kink; one step's 5 launches timed together."""
+    import torch
+
+    from improved_body_parts_torch.ops import cuda_focal
+    from improved_body_parts_torch.ops.losses import _chan_scale
+
+    sk, tr = cfg.skeleton, cfg.train
+    stacks, batch = cfg.model.nstack, tr.batch_size_per_device
+    c = sk.num_layers
+    chan = _chan_scale(c, sk.heat_start, sk.bkg_start, tr.multi_task_weight,
+                       tr.keypoint_task_weight, device=dev)
+    ct = torch.tensor(tr.nstack_weight, device=dev) * 0.25  # a cotangent
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def uniform(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    scales = []
+    for hw in (sk.height // sk.stride >> s for s in range(5)):
+        pred = uniform(stacks, batch, hw, hw, c) * 1.4 - 0.2
+        gt = uniform(batch, hw, hw, c) * (uniform(batch, hw, hw, c) > 0.7)
+        mask = (uniform(batch, hw, hw, 1) > 0.1).float()
+        scales.append((pred, gt, mask))
+    kink = [(torch.where(gt >= cuda_focal.FG_THRE, 1.0, 0.0).expand_as(pred)
+             .contiguous(), gt, mask) for pred, gt, mask in scales]
+    on_kink = 0
+    fwd_err = fwd_rel = 0.0
+    for label, case in (("sparse", scales), ("kink", kink)):
+        for pred, gt, mask in case:
+            got = cuda_focal.focal_fwd_kernel(pred, gt, mask, chan)
+            want = cuda_focal.focal_fwd_plain(pred, gt, mask, chan)
+            dgot = cuda_focal.focal_bwd_kernel(pred, gt, mask, chan, ct)
+            dwant = cuda_focal.focal_bwd_plain(pred, gt, mask, chan, ct)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-30)
+            check(np.isfinite(err) and rel <= 1e-5,
+                  f"focal_fwd ({label}, {tuple(pred.shape)}): rel error "
+                  f"{rel:.3g} against the plain version")
+            check(torch.equal(dgot, dwant),
+                  f"focal_bwd ({label}, {tuple(pred.shape)}): differs from "
+                  f"the plain version in {int((dgot != dwant).sum())} "
+                  "places")
+            fwd_err, fwd_rel = max(fwd_err, err), max(fwd_rel, rel)
+            if label == "kink":
+                on_kink += int((dwant != 0).sum())
+        print(f"[3 kernels] focal ({label}): forward within rel "
+              f"{fwd_rel:.3g} of the plain version, backward equal bit "
+              "for bit at all 5 scales")
+    check(on_kink > 0, "focal: the kink case has no gradient")
+
+    def one_step(fn, *extra):
+        return lambda: [fn(p, g, m, chan, *extra) for p, g, m in scales]
+
+    in_bytes = sum(p.numel() + g.numel() + m.numel() + c
+                   for p, g, m in scales) * 4
+    pred_elems = sum(p.numel() for p, _, _ in scales)
+    return {
+        "focal_fwd": dict(
+            err=fwd_err,
+            ms=cuda_ms(one_step(cuda_focal.focal_fwd_kernel), 20),
+            plain_ms=cuda_ms(one_step(cuda_focal.focal_fwd_plain), 5),
+            bytes=in_bytes + 5 * stacks * 4,
+            ops=pred_elems * 10),  # compare, select, 2 sub, abs, 4 mul, add
+        "focal_bwd": dict(
+            err=0.0,
+            ms=cuda_ms(one_step(cuda_focal.focal_bwd_kernel, ct), 20),
+            plain_ms=cuda_ms(one_step(cuda_focal.focal_bwd_plain, ct), 5),
+            bytes=in_bytes + 5 * stacks * 4 + pred_elems * 4,
+            ops=pred_elems * 16),
+    }
+
+
+def train_full_width(cfg, dev, smi):
+    """Phase 6: ``canonical`` trains at full width on drawn synthetic
+    people; returns the focal kernels' launches in the 10 timed steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from improved_body_parts_torch.data.dataset import (
+        CocoPoseDataset,
+        batches,
+        convert_joints,
+    )
+    from improved_body_parts_torch.data.fixture import _synth_image
+    from improved_body_parts_torch.data.hdf5_corpus import (
+        build_masks,
+        iter_records,
+    )
+    from improved_body_parts_torch.data.heatmapper import Heatmapper
+    from improved_body_parts_torch.data.transformer import Transformer
+    from improved_body_parts_torch.models import build_model
+    from improved_body_parts_torch.ops import cuda_focal
+    from improved_body_parts_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        step_decay_schedule,
+        train_epoch,
+    )
+    from improved_body_parts_torch.train.step import to_device
+
+    class MemoryDataset(CocoPoseDataset):
+        """The port's dataset over in-memory drawn records (the h5py corpus
+        reader is bypassed; sampling, augmentation and GT are the
+        package's)."""
+
+        def __init__(self, config, records, seed=0):
+            self.config, self.skeleton = config, config.skeleton
+            self.augment, self.seed = True, seed
+            self.transformer = Transformer(self.skeleton)
+            self.heatmapper = Heatmapper(self.skeleton)
+            self.records, self.keys, self._file = records, records, None
+
+        def read_raw(self, index):
+            return self.records[index]
+
+    sk, tr = cfg.skeleton, cfg.train
+    bs, warm_steps, steps = tr.batch_size_per_device, 2, 10
+    rng = np.random.default_rng(6)
+    records = []
+    while len(records) < bs * (warm_steps + steps):
+        img, persons, _ = _synth_image(rng, 480, 640, 2, sk.width,
+                                       drawn=True)
+        person_masks = []
+        for p in persons:
+            m = np.zeros(img.shape[:2], np.uint8)
+            x0, y0, bw, bh = [int(v) for v in p["bbox"]]
+            m[max(y0, 0): y0 + bh, max(x0, 0): x0 + bw] = 1
+            person_masks.append(m)
+        mask_miss, mask_all = build_masks(
+            img.shape[:2], person_masks, [p["num_keypoints"] for p in persons])
+        for rec in iter_records({"width": 640, "height": 480}, 0, 0, persons,
+                                "SYNTH", is_validation=False):
+            records.append((img, mask_miss, mask_all,
+                            convert_joints(np.asarray(rec["joints"]), sk),
+                            tuple(rec["objpos"][0]),
+                            float(rec["scale_provided"][0])))
+    warm_set = MemoryDataset(cfg, records[:bs * warm_steps])
+    timed_set = MemoryDataset(cfg, records[bs * warm_steps:
+                                           bs * (warm_steps + steps)])
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    opt = make_optimizer(model, cfg, step_decay_schedule(
+        tr, steps_per_epoch=warm_steps + steps))
+    state = create_train_state(model, cfg, opt)
+    step = make_train_step(model, cfg, opt)
+    losses, events = [], []
+
+    def timed_step(state, *batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, *batch)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+        return state, loss
+
+    data_s = [0.0]
+
+    def timed_batches(dataset, epoch):
+        it = batches(dataset, bs, epoch, pipeline="sync", wire="uint8")
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            data_s[0] += time.perf_counter() - t
+            if batch is None:
+                return
+            check(batch[0].dtype == np.uint8
+                  and batch[0].shape == (bs, sk.height, sk.width, 3),
+                  f"training batch images {batch[0].shape}")
+            yield batch
+
+    log = []
+    state, _ = train_epoch(state, timed_step, timed_batches(warm_set, 0),
+                           cfg, 0, print_freq=5, log_fn=log.append)
+    torch.cuda.synchronize()
+    print(f"[6 training] canonical imhn in train mode, bf16 autocast, "
+          f"{warm_steps} warm-up steps at batch {bs} x {sk.height}x"
+          f"{sk.width} in {time.perf_counter() - t0:.1f} s (build, "
+          "first steps)")
+
+    watch = {n: t.detach().clone() for n, t in model.state_dict().items()
+             if n.startswith("backbone.stem.")}
+    for fn in (cuda_focal.focal_fwd_kernel, cuda_focal.focal_bwd_kernel):
+        fn.launches = 0
+    losses.clear()
+    events.clear()
+    data_s[0] = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, mean_loss = train_epoch(state, timed_step,
+                                   timed_batches(timed_set, 1), cfg, 1,
+                                   print_freq=5, log_fn=log.append)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"focal_fwd": cuda_focal.focal_fwd_kernel.launches,
+                "focal_bwd": cuda_focal.focal_bwd_kernel.launches}
+    peak_mem = torch.cuda.max_memory_allocated()
+    for line in log:
+        print(f"[6 training] {line}")
+    print(f"[6 training] focal kernel launches in {steps} timed steps: "
+          f"{launches}")
+    for kname, n in launches.items():
+        check(n == 5 * steps, f"{kname}: {n} launches in {steps} steps, "
+              f"expected {5 * steps}")
+    check(len(losses) == steps and bool(torch.isfinite(
+        torch.stack(losses)).all()) and np.isfinite(mean_loss),
+        "training: a loss is not finite")
+    check(state.step == warm_steps + steps,
+          f"training: step {state.step} after {warm_steps + steps} steps")
+    check(int(opt.count) == warm_steps + steps,
+          "training: a step's update was dropped")
+    after = model.state_dict()
+    for n, before in watch.items():
+        if n.endswith(("weight", "bias", "running_mean", "running_var")):
+            check(not torch.equal(after[n], before),
+                  f"training: {n} did not move")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    print(f"[6 training] {steps} steps: median step {step_ms:.2f} ms (CUDA "
+          f"events around each step), host data "
+          f"{1e3 * data_s[0] / steps:.2f} ms per batch of {bs} (sync "
+          f"pipeline), {steps * bs / wall_s:.2f} imgs/s "
+          f"({1e3 * wall_s / steps:.2f} ms a step, host clock), mean loss "
+          f"{mean_loss:.4f}, peak device memory {peak_mem / 2**30:.2f} GiB "
+          f"[{smi}]")
+
+    # the step alone, on one batch already on the card: back to back
+    # (CUDA events), then its kernels by group (torch.profiler)
+    dev_batch = to_device(next(batches(timed_set, bs, 2, wire="uint8")),
+                          dev)
+    b2b_ms = cuda_ms(lambda: step(state, *dev_batch), 3)
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(prof_steps):
+            step(state, *dev_batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    groups = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            g = kernel_group(e.name)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(groups.values()) / 1e3 / prof_steps
+    print(f"[6 training] one step on a device batch, back to back: "
+          f"{b2b_ms:.2f} ms (CUDA events) [{smi}]")
+    if not groups:
+        print("[6 training] device busy time: not measured (the profiler "
+              "recorded no kernel)")
+    else:
+        split = ", ".join(f"{g} {t / 1e3 / prof_steps:.2f}"
+                          for g, t in sorted(groups.items(),
+                                             key=lambda kv: -kv[1]))
+        print(f"[6 training] profiled {prof_steps} steps: kernels "
+              f"{busy_ms:.2f} ms a step of {1e3 * prof_s / prof_steps:.2f} "
+              f"ms wall (device busy {busy_ms * prof_steps / 1e3 / prof_s:.1%}"
+              f"); by group, ms a step: {split} [{smi}]")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print("[6 training] host, self CPU ms a step under the profiler (calls "
+          "a step): " + ", ".join(
+              f"{e.key} {e.self_cpu_time_total / 1e3 / prof_steps:.2f} "
+              f"({e.count // prof_steps})" for e in host[:10]))
+    return launches
+
+
+def kernel_group(name: str) -> str:
+    """The group of a CUDA kernel, by its name, for the step's breakdown."""
+    n = name.lower()
+    for key, group in (("focal", "focal kernels"), ("sgd", "optimizer"),
+                       ("conv", "convolution"), ("xmma", "convolution"),
+                       ("cudnn", "convolution"), ("gemm", "matmul"),
+                       ("batch_norm", "batch norm"), ("welford", "batch norm"),
+                       ("bn_", "batch norm"), ("reduce", "reductions"),
+                       ("elementwise", "elementwise"), ("copy", "copies"),
+                       ("memcpy", "copies"), ("memset", "copies")):
+        if key in n:
+            return group
+    return "other"
 
 
 def main() -> int:
@@ -346,6 +645,7 @@ def main() -> int:
             *walk_in, TOPK), 5),
         bytes=rows * m_cap * 4 * 4 + rows * 4,
         ops=rows * m_cap * 6)
+    results.update(focal_kernels(cfg, dev))
     for kname, r in results.items():
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["ops"] / FP32_OPS_PER_S)
@@ -463,6 +763,12 @@ def main() -> int:
           f"timed call {wall_s * 1e3:.2f} ms), peak device memory "
           f"{peak_mem / 2**30:.2f} GiB [{smi}]")
 
+    del model, pred, bucket, lane_maps, out
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- 6. training at full width
+    launches.update(train_full_width(cfg, dev, smi))
+
     # ------------------------------------------------------- the result
     src = {"topk_peaks": ("improved_body_parts_torch/csrc/peaks.cu",
                           "improved_body_parts_tpu/ops/pallas_peaks.py:150"),
@@ -471,7 +777,11 @@ def main() -> int:
                "improved_body_parts_tpu/ops/pallas_peaks.py:224"),
            "candidate_walk": (
                "improved_body_parts_torch/csrc/walk.cu",
-               "improved_body_parts_tpu/ops/pallas_assembly.py:75")}
+               "improved_body_parts_tpu/ops/pallas_assembly.py:75"),
+           "focal_fwd": ("improved_body_parts_torch/csrc/focal.cu",
+                         "improved_body_parts_tpu/ops/pallas_focal.py:98"),
+           "focal_bwd": ("improved_body_parts_torch/csrc/focal.cu",
+                         "improved_body_parts_tpu/ops/pallas_focal.py:120")}
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k],
                     max_abs_err=r["err"], ms=r["ms"],

@@ -1,14 +1,16 @@
 """PyTorch + CUDA port of ``improved_body_parts_tpu`` for NVIDIA Hopper.
 
 The package mirrors the JAX package's module names (``config``,
-``models``, ``ops``, ``infer``) and keeps its public layouts (NHWC maps,
-``(C, K)`` / ``(L, M)`` decode records), so each counterpart is easy to
-find and the tests compare like with like.  It imports ``torch`` and
-numpy only, never ``jax`` and nothing of the JAX package.
+``models``, ``ops``, ``infer``, ``data``, ``train``, ``utils``) and keeps
+its public layouts (NHWC maps, ``(C, K)`` / ``(L, M)`` decode records),
+so each counterpart is easy to find and the tests compare like with
+like.  It imports ``torch`` and
+numpy (and cv2, h5py for the data pipeline) only, never ``jax`` and
+nothing of the JAX package.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without that request it raises
-(:func:`resolve_device`).  The decode kernels (``csrc/*.cu``) are built
+(:func:`resolve_device`).  The kernels (``csrc/*.cu``) are built
 with ``nvcc`` at first use (``ops/_build.py``); on a CPU tensor each
 wrapper runs its kernel's plain PyTorch version instead.
 """

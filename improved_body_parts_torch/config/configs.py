@@ -299,8 +299,8 @@ class TrainConfig:
     normalize_by_global_batch: bool = True
     bf16_compute: bool = True
     # kept for field-for-field equality with the JAX package, where it
-    # routes the focal loss through its Pallas kernel; the port has no
-    # loss yet (training is a later slice)
+    # routes the focal loss through its Pallas kernel; the port has one
+    # implementation (the CUDA kernels on the card, ops/cuda_focal.py)
     use_pallas_loss: bool = False
     # --- input pipeline (data.batches / data.shm_ring) ---
     # worker transport: "shm" (persistent shared-memory slot ring, the

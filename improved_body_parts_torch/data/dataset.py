@@ -1,0 +1,159 @@
+"""Online training dataset: HDF5 corpus -> (image, mask_miss, labels)
+samples (counterpart of ``improved_body_parts_tpu/data/dataset.py``).
+
+- per-sample randomness comes from a ``(seed, epoch, index)``-derived
+  ``numpy.random.Generator``: deterministic and the same bits as the JAX
+  package's pipeline for the same seed;
+- epoch shuffling is an epoch-seeded permutation and multi-host sharding a
+  strided slice of it (``DistributedSampler.set_epoch``,
+  train_distributed.py:205-213, 231-232);
+- the HDF5 file is opened lazily (h5py is imported only then).
+
+Outputs are channel-last: image (H, W, 3), float32 in [0, 1] on
+``wire="f32"`` or the warped uint8 pixels on ``wire="uint8"`` (normalised
+on the device by the train step); mask_miss (h, w, 1) and labels
+(h, w, num_layers) on the stride-4 grid.  Only the in-process ``"sync"``
+pipeline is ported; the shared-memory ring, the spawn pool and the
+device-GT ``sample_raw`` wait (ROADMAP).
+"""
+from __future__ import annotations
+
+import json
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+from ..config import COCO_PARTS, Config, SkeletonConfig
+from .heatmapper import Heatmapper
+from .transformer import AugmentParams, Transformer
+
+
+def convert_joints(coco_joints: np.ndarray, skeleton: SkeletonConfig
+                   ) -> np.ndarray:
+    """COCO 17-part -> internal 18-part order with neck = mean of shoulders
+    (reference: config/config.py:155-224 ``COCOSourceConfig.convert``).
+
+    Visibility: 3 = never marked in this dataset (the synthetic neck gets 2
+    when either shoulder is unknown, else min of the shoulder flags).
+    """
+    coco_index = {p: i for i, p in enumerate(COCO_PARTS)}
+    n_people = coco_joints.shape[0]
+    out = np.zeros((n_people, skeleton.num_parts, 3), dtype=np.float64)
+    out[:, :, 2] = 3.0
+    for part, gid in skeleton.parts_dict.items():
+        cid = coco_index.get(part)
+        if cid is not None:
+            out[:, gid, :] = coco_joints[:, cid, :]
+    if "neck" in skeleton.parts_dict:
+        neck = skeleton.parts_dict["neck"]
+        rs, ls = coco_index["Rsho"], coco_index["Lsho"]
+        known = (coco_joints[:, rs, 2] < 2) & (coco_joints[:, ls, 2] < 2)
+        out[~known, neck, 2] = 2.0
+        out[known, neck, 0:2] = (coco_joints[known, rs, 0:2]
+                                 + coco_joints[known, ls, 0:2]) / 2
+        out[known, neck, 2] = np.minimum(coco_joints[known, rs, 2],
+                                         coco_joints[known, ls, 2])
+    return out
+
+
+class CocoPoseDataset:
+    """Random-access view over the HDF5 corpus.  A subclass may serve its
+    records from elsewhere by overriding ``__init__`` and
+    :meth:`read_raw`."""
+
+    def __init__(self, h5_path: str, config: Config, augment: bool = True,
+                 seed: int = 0):
+        import h5py
+
+        self.h5_path = h5_path
+        self.config = config
+        self.skeleton = config.skeleton
+        self.augment = augment
+        self.seed = seed
+        self.transformer = Transformer(self.skeleton)
+        self.heatmapper = Heatmapper(self.skeleton)
+        self._file = None
+        with h5py.File(h5_path, "r") as f:
+            self.keys = sorted(f["dataset"].keys())
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def _groups(self):
+        if self._file is None:
+            import h5py
+
+            self._file = h5py.File(self.h5_path, "r")
+        f = self._file
+        return f["dataset"], f["images"], f.get("masks")
+
+    def read_raw(self, index: int):
+        """(img, mask_miss, mask_all, joints, objpos, scale_provided)
+        (py_data_iterator.py:109-144 'new format' reader)."""
+        dataset, images, masks = self._groups()
+        entry = dataset[self.keys[index]]
+        meta = json.loads(entry[()])
+        img = images[meta["image"]][()]
+        if masks is not None and meta["image"] in masks:
+            mask_concat = masks[meta["image"]][()]
+            mask_miss, mask_all = mask_concat[..., 0], mask_concat[..., 1]
+        else:  # MPII-style corpus without masks (py_data_iterator.py:140)
+            mask_miss = np.full(img.shape[:2], 255, np.uint8)
+            mask_all = np.zeros(img.shape[:2], np.uint8)
+        joints = convert_joints(np.asarray(meta["joints"]), self.skeleton)
+        return (img, mask_miss, mask_all, joints,
+                tuple(meta["objpos"][0]), float(meta["scale_provided"][0]))
+
+    def sample(self, index: int, epoch: int = 0, wire: str = "f32"
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One training sample, deterministic in (seed, epoch, index):
+        (image, mask_miss (h, w, 1), labels (h, w, num_layers))."""
+        img, mask_miss, mask_all, joints, objpos, scale = self.read_raw(index)
+        rng = np.random.default_rng((self.seed, epoch, index))
+        aug = None if self.augment else AugmentParams.identity()
+        img, mask_miss, mask_all, joints = self.transformer.transform(
+            img, mask_miss, mask_all, joints, objpos, scale, aug=aug, rng=rng,
+            wire=wire)
+        labels = self.heatmapper.create_heatmaps(joints, mask_all)
+        return img, mask_miss[..., None], labels
+
+    def close(self):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+def epoch_permutation(n: int, epoch: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng((seed, epoch)).permutation(n)
+
+
+def host_shard(indices: np.ndarray, process_index: int, process_count: int,
+               batch_size: int) -> np.ndarray:
+    """This host's strided slice, truncated so every host yields the same
+    number of full batches (drop_last semantics,
+    train_distributed.py:205-213): the batch count comes from the GLOBAL
+    minimum shard length."""
+    shard = indices[process_index::process_count]
+    min_shard_len = len(indices) // process_count
+    n_batches = min_shard_len // batch_size
+    return shard[: n_batches * batch_size]
+
+
+def batches(dataset: CocoPoseDataset, batch_size: int, epoch: int,
+            process_index: int = 0, process_count: int = 1,
+            pipeline: Optional[str] = None, wire: str = "f32"
+            ) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Yield batched (images, mask_miss, labels) host arrays for one epoch,
+    generated in this process (``pipeline="sync"``, the only transport
+    ported).  ``wire="uint8"`` ships the images as uint8 HWC, normalised
+    on the device by the train step (bit-identical to ``"f32"``)."""
+    if pipeline not in (None, "sync"):
+        raise NotImplementedError(
+            f"input pipeline {pipeline!r} is not ported yet; only 'sync' is "
+            "(ROADMAP.md, queue 1: the shm ring)")
+    perm = epoch_permutation(len(dataset), epoch, dataset.seed)
+    shard = host_shard(perm, process_index, process_count, batch_size)
+    for start in range(0, len(shard), batch_size):
+        samples = [dataset.sample(int(i), epoch, wire=wire)
+                   for i in shard[start: start + batch_size]]
+        yield tuple(np.stack(col) for col in zip(*samples))

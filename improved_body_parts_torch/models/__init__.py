@@ -1,6 +1,11 @@
-from .convert import flax_to_state_dict, load_flax_variables
+from .convert import (
+    flax_to_state_dict,
+    flax_train_state_to_torch,
+    load_flax_variables,
+)
 from .layers import (
     Backbone,
+    BatchNorm,
     ConvBlock,
     Hourglass,
     Residual,
@@ -13,6 +18,7 @@ from .posenet import Features, PoseNet, build_model
 
 __all__ = [
     "Backbone",
+    "BatchNorm",
     "ConvBlock",
     "Features",
     "Hourglass",
@@ -21,6 +27,7 @@ __all__ = [
     "SELayer",
     "build_model",
     "flax_to_state_dict",
+    "flax_train_state_to_torch",
     "init_weights",
     "load_flax_variables",
     "max_pool_2x2",

@@ -163,7 +163,7 @@ def flax_to_state_dict(variables: Mapping, model: PoseNet
                             f"for {key}")
             continue
         used.add((coll, path))
-        val = np.ascontiguousarray(_TRANSFORMS[how](arr), dtype=np.float32)
+        val = np.array(_TRANSFORMS[how](arr), dtype=np.float32, order="C")
         if tuple(val.shape) != tuple(ref.shape):
             problems.append(f"{key}: shape {tuple(val.shape)} from "
                             f"{coll}/{'/'.join(path)} != {tuple(ref.shape)}")
@@ -183,3 +183,61 @@ def load_flax_variables(model: PoseNet, variables: Mapping) -> PoseNet:
     sd = flax_to_state_dict(variables, model)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _optax_states(opt_state):
+    """Every optax state record (a NamedTuple) in ``opt_state``'s nested
+    tuples, in chain order."""
+    if hasattr(opt_state, "_fields"):
+        yield opt_state
+        children = tuple(opt_state)
+    elif isinstance(opt_state, (tuple, list)):
+        children = opt_state
+    else:
+        return
+    for child in children:
+        yield from _optax_states(child)
+
+
+def flax_train_state_to_torch(train_state, model: PoseNet) -> Dict:
+    """Turn a JAX ``TrainState`` (``improved_body_parts_tpu.train.state``:
+    params, batch_stats, opt_state, step; read by attribute) into the
+    port's training state, as numpy leaves:
+
+    - ``"state_dict"``: ``model``'s state_dict (:func:`flax_to_state_dict`);
+    - ``"momentum"``: {parameter name: SGD momentum buffer}, from the
+      ``trace`` of optax's ``TraceState`` (converted like the parameter it
+      belongs to);
+    - ``"count"``: optax's ``ScaleByScheduleState.count``, the number of
+      updates the schedule has counted;
+    - ``"step"``: the global step.
+
+    Raises ``ValueError`` when the optimizer state holds no momentum trace
+    or no schedule count (``train.state.make_optimizer``'s chain has both).
+    """
+    traces = [s.trace for s in _optax_states(train_state.opt_state)
+              if "trace" in s._fields]
+    counts = [s.count for s in _optax_states(train_state.opt_state)
+              if "count" in s._fields]
+    if len(traces) != 1 or len(counts) != 1:
+        raise ValueError(f"expected one momentum trace and one schedule "
+                         f"count in opt_state, found {len(traces)} and "
+                         f"{len(counts)}")
+    variables = {"params": train_state.params,
+                 "batch_stats": train_state.batch_stats}
+    sd = {k: v.numpy() for k, v in flax_to_state_dict(variables,
+                                                      model).items()}
+    trace = _flatten(traces[0])
+    leaf_map = flax_leaf_map(model)
+    momentum = {}
+    for name, p in model.named_parameters():
+        _, path, how = leaf_map[name]
+        val = np.array(_TRANSFORMS[how](trace[path]), dtype=np.float32,
+                       order="C")
+        if tuple(val.shape) != tuple(p.shape):
+            raise ValueError(f"momentum of {name}: shape {val.shape} != "
+                             f"{tuple(p.shape)}")
+        momentum[name] = val
+    return {"state_dict": sd, "momentum": momentum,
+            "count": int(np.asarray(counts[0])),
+            "step": int(np.asarray(train_state.step))}

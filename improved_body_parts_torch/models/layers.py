@@ -13,7 +13,13 @@ Two numerics details carry the Flax semantics over:
   :class:`ConvBlock` pads explicitly (:func:`same_padding`) and convolves
   unpadded.  Stride-1 convs with odd kernels pad ``dilation*(k-1)/2`` on
   each side, which is what SAME gives there.
-- BatchNorm runs in eval mode with eps 1e-5 (Flax ``use_running_average``).
+- BatchNorm (:class:`BatchNorm`) has eps 1e-5.  In eval mode it uses the
+  running averages (Flax ``use_running_average``).  In train mode it
+  normalises with the biased batch variance and updates the running stats
+  as Flax ``nn.BatchNorm(momentum=0.9)`` does: ``var <- 0.9 var + 0.1
+  batch_var`` with the BIASED variance in Flax's fast form
+  ``mean(x^2) - mean(x)^2``, reduced in float32.  ``nn.BatchNorm2d``
+  would update with the unbiased variance.
 
 Weight init matches the JAX package (reference: models/posenet.py:119-139):
 conv N(0, 0.001), dense N(0, 0.01), biases zero, BN (1, 0).
@@ -45,6 +51,31 @@ def upsample_nearest_2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax train-mode semantics (see the module
+    docstring); the ``state_dict`` keys are ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            dims = (0, 2, 3)
+            n = x.numel() // x.shape[1]
+            dt = torch.promote_types(x.dtype, torch.float32)
+            mean = torch.mean(x, dim=dims, dtype=dt)
+            mean2 = torch.linalg.vector_norm(x, dim=dims,
+                                             dtype=dt).square() / n
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        return y
+
+
 def same_padding(size: int, kernel: int, stride: int, dilation: int
                  ) -> Tuple[int, int]:
     """(low, high) padding of one spatial axis under Flax/XLA ``SAME``."""
@@ -74,7 +105,7 @@ class ConvBlock(nn.Module):
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride=stride,
                               padding=pad, dilation=dilation,
                               bias=not use_bn)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5) if use_bn else None
+        self.bn = BatchNorm(cout) if use_bn else None
         self.relu = relu
 
     def forward(self, x):
@@ -100,14 +131,14 @@ class Residual(nn.Module):
         super().__init__()
         mid = cout // 2
         self.conv1 = nn.Conv2d(cin, mid, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn1 = BatchNorm(mid)
         self.conv2 = nn.Conv2d(mid, mid, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn2 = BatchNorm(mid)
         self.conv3 = nn.Conv2d(mid, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn3 = BatchNorm(cout)
         if cin != cout:
             self.skip_conv = nn.Conv2d(cin, cout, 1, bias=False)
-            self.skip_bn = nn.BatchNorm2d(cout, eps=1e-5)
+            self.skip_bn = BatchNorm(cout)
         else:
             self.skip_conv = self.skip_bn = None
 

@@ -12,9 +12,12 @@ NHWC float32 predictions, largest scale first, like the Flax model.
 
 Compute type follows ``build_model``: bf16 under autocast with fp32
 parameters when ``config.train.bf16_compute`` (the Flax ``dtype=bf16,
-param_dtype=fp32`` split), fp32 on request.  Only the ``imhn`` variant is
-ported in this slice; ``build_model`` raises ``NotImplementedError`` for
-the other five (ROADMAP queue).
+param_dtype=fp32`` split), fp32 on request.  ``build_model(train=True)``
+returns the model in train mode: BatchNorm normalises with batch
+statistics and updates its running averages (``models.layers.BatchNorm``),
+and the predictions carry gradients.  Only the ``imhn`` variant is ported;
+``build_model`` raises ``NotImplementedError`` for the other five
+(ROADMAP queue).
 """
 from __future__ import annotations
 
@@ -98,8 +101,9 @@ class PoseNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> List[List[torch.Tensor]]:
         """images: (N, H, W, 3) float in [0, 1] → [nstack][5] NHWC fp32."""
-        # NHWC → NCHW view: channels-last strides, no copy
-        x = images.permute(0, 3, 1, 2)
+        # NHWC → NCHW view: channels-last strides, no copy; in the
+        # parameters' type (a no-op for the fp32 model)
+        x = images.permute(0, 3, 1, 2).to(self.backbone.stem.conv.weight.dtype)
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(device_type=x.device.type, dtype=torch.bfloat16,
                             enabled=bf16):
@@ -125,17 +129,24 @@ class PoseNet(nn.Module):
 
 
 def build_model(config: Config, dtype: Optional[torch.dtype] = None,
-                device="cuda", seed: int = 0) -> PoseNet:
-    """Construct the model selected by ``config.model.variant`` in eval
-    mode on ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``;
-    ``"meta"`` builds shapes only, for counting parameters), with seeded
-    weights (:func:`models.layers.init_weights`).  ``dtype`` is the
-    compute type: bf16 when ``config.train.bf16_compute``, else fp32."""
+                device="cuda", seed: int = 0, train: bool = False
+                ) -> PoseNet:
+    """Construct the model selected by ``config.model.variant`` on
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``; ``"meta"``
+    builds shapes only, for counting parameters), with seeded weights
+    (:func:`models.layers.init_weights`), in eval mode unless ``train``.
+    ``dtype`` is the compute type: bf16 when ``config.train.bf16_compute``,
+    else fp32.  ``config.model.remat`` is ignored in eval mode (nothing is
+    kept for a backward pass) and not ported for training."""
     m = config.model
     if m.variant != "imhn":
         raise NotImplementedError(
             f"model variant {m.variant!r} is not ported yet; only 'imhn' is "
             "(ROADMAP.md, queue 1: the other five variants)")
+    if train and m.remat:
+        raise NotImplementedError(
+            "remat=True (per-stack rematerialisation) is not ported for "
+            "training (ROADMAP.md, queue 1); canonical trains without it")
     if dtype is None:
         dtype = torch.bfloat16 if config.train.bf16_compute else torch.float32
     kw = dict(nstack=m.nstack, inp_dim=m.inp_dim,
@@ -144,9 +155,9 @@ def build_model(config: Config, dtype: Optional[torch.dtype] = None,
               se_reduction=m.se_reduction, compute_dtype=dtype)
     if str(device) == "meta":
         with torch.device("meta"):
-            return PoseNet(**kw).eval()
+            return PoseNet(**kw).train(train)
     dev = resolve_device(device)
     model = init_weights(PoseNet(**kw), seed)
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

@@ -1,9 +1,11 @@
-"""Decode ops of the port: peak extraction, limb scoring, assembly.
+"""Ops of the port: peak extraction, limb scoring, assembly, and the
+training loss.
 
 The hand-written kernels live in ``csrc/*.cu`` and are bound by
-``ops.cuda_peaks`` / ``ops.cuda_assembly`` (built at first use by
-``ops._build``)."""
+``ops.cuda_peaks`` / ``ops.cuda_assembly`` / ``ops.cuda_focal`` (built at
+first use by ``ops._build``)."""
 from .assembly import AssemblyResult, candidate_walk, greedy_assemble
+from .losses import focal_l2, l1, l2, multi_task_loss
 from .peaks import (
     LimbCandidates,
     PairStats,
@@ -19,8 +21,12 @@ __all__ = [
     "PairStats",
     "TopKPeaks",
     "candidate_walk",
+    "focal_l2",
     "greedy_assemble",
+    "l1",
+    "l2",
     "limb_pair_stats",
     "limb_topk_from_stats",
+    "multi_task_loss",
     "topk_peaks",
 ]

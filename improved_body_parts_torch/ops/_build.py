@@ -1,4 +1,4 @@
-"""Build and load the decode kernels (``csrc/*.cu``) at first use.
+"""Build and load the kernels (``csrc/*.cu``) at first use.
 
 Each CUDA source is compiled by its own ``nvcc`` process (all started
 together) into a shared library with a plain C interface, which is loaded
