@@ -13,11 +13,18 @@ failed phase ends the run with a non-zero exit code:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card.  The decode kernels at the serve lane's shapes (batch 8,
    640x896 maps, 18 keypoint channels, K=64, 30 limbs, M=128) with planted
-   sparse peaks: integer outputs exactly, float outputs within 1e-5.  The
-   focal-loss kernels at the canonical training shapes (4 stacks, batch 4,
-   the 5 scales 128^2..8^2, 50 channels) on sparse GT and on a case
-   planted on the kink: the forward within rel 1e-5, the backward bit for
-   bit.  Median times of kernel and plain version;
+   sparse peaks, and on dense noise that takes topk_peaks' rare paths (a
+   band that keeps more than K, a channel that keeps more than the select
+   block's buffer) and gives limb_pair_stats segments of all 20 samples,
+   and at the sizes the lane does not compile for (17 channels, radius 1,
+   12 samples): integer outputs exactly, topk_peaks' and limb_pair_stats'
+   floats bit for bit.  The focal-loss kernels at the canonical training shapes (4
+   stacks, batch 4, the 5 scales 128^2..8^2, 50 channels) on sparse GT and
+   on a case planted on the kink: the forward within rel 1e-5, the
+   backward bit for bit.  Median times of kernel (CUDA events around the
+   wrapper call) and plain version, and each kernel's device time apart
+   from its wrapper (torch.profiler over 20 calls; topk_peaks by pass,
+   beside what reading its maps' slices alone takes);
 4. planted serve: a stub network that returns planted people's maps, a few
    requests of different sizes through ``Predictor.predict_decoded_batch``
    and ``decode_device``; every planted person decodes, keypoints within
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +65,12 @@ TOPK, RADIUS, SAMPLES = 64, 2, 20
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                      # H100 SXM, outside tensor cores
 FLOAT_TOL = 1e-5
+# the __global__ kernels each wrapper launches, by source, for device_ms
+PEAKS_PASSES = ("peaks_nms_kernel", "peaks_select_kernel")
+LIMBS_PASSES = ("limb_pair_stats_kernel",)
+WALK_PASSES = ("candidate_walk_kernel",)
+FOCAL_FWD_PASSES = ("focal_fwd_partial", "focal_fwd_final")
+FOCAL_BWD_PASSES = ("focal_bwd",)
 
 # internal part order of the canonical skeleton, unit-box positions of a
 # standing person (x across, y down, facing the camera)
@@ -106,6 +120,43 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20):
+    """Device time of ``fn()`` apart from the host work around it:
+    ``torch.profiler`` over ``calls`` back-to-back calls, the CUDA time of
+    each kernel named in ``kernels`` (the ``__global__`` names of one
+    source) over the launches recorded, times ``launches_a_call``.
+    Returns {kernel: ms a call}.  Fails when the profiler recorded no
+    launch of a kernel.  The profiler can drop the first kernel of its
+    window, so a marker kernel runs first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    pats = {k: re.compile(rf"(^|\W){k}($|\W)") for k in kernels}
+    us = dict.fromkeys(kernels, 0.0)
+    seen = dict.fromkeys(kernels, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, pat in pats.items():
+            if pat.search(e.name):
+                us[k] += e.time_range.elapsed_us()
+                seen[k] += 1
+    for k in kernels:
+        check(seen[k] > 0, f"device_ms: the profiler recorded no launch of "
+              f"{k} in {calls} calls")
+    return {k: us[k] / seen[k] * launches_a_call / 1e3 for k in kernels}
 
 
 def person_joints(sk, x0: float, y0: float, height: float) -> np.ndarray:
@@ -169,9 +220,10 @@ class MirrorStub:
         return [[torch.stack([m] * half + [mirror] * half)]]
 
 
-def compare(name, got, want, int_fields):
+def compare(name, got, want, int_fields, tol=FLOAT_TOL):
     """Max abs error of ``got`` vs ``want`` (equal-length tuples); integer
-    and bool fields must match exactly, floats within FLOAT_TOL."""
+    and bool fields must match exactly, floats within ``tol`` (0: bit for
+    bit)."""
     import torch
 
     worst = 0.0
@@ -184,10 +236,101 @@ def compare(name, got, want, int_fields):
                   f"version in {int((g.to(w.dtype) != w).sum())} places")
         else:
             err = float((g - w).abs().max()) if g.numel() else 0.0
-            check(np.isfinite(err) and err <= FLOAT_TOL,
+            check(np.isfinite(err) and err <= tol
+                  and (tol > 0 or torch.equal(g, w)),
                   f"{name}: float output {i} off by {err}")
             worst = max(worst, err)
     return worst
+
+
+def read_floor_ms(kp) -> float:
+    """Device time of ``peaks_read_probe`` (``csrc/peaks.cu``) over the
+    keypoint slice ``kp``: every pixel's channel slice read once, coalesced,
+    nothing computed -- what the NMS pass's reads alone cost on this card
+    for this layout (profiler, 20 launches)."""
+    import ctypes
+
+    import torch
+
+    from improved_body_parts_torch.ops import _build
+
+    n, h, w, c = kp.shape
+    check(kp.stride(3) == 1 and kp.stride(1) == w * kp.stride(2)
+          and kp.stride(0) == h * kp.stride(1),
+          "read probe: the keypoint slice's pixels are not evenly strided")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("peaks", "ibp_peaks_read_probe", (p, i, i, i, p, p))
+    sink = torch.zeros(1, device=kp.device)
+
+    def run():
+        _build.check(fn(kp.data_ptr(), n * h * w, kp.stride(2), c,
+                        sink.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream),
+                     "peaks_read_probe")
+
+    return device_ms(run, ("peaks_read_probe",))["peaks_read_probe"]
+
+
+def dense_cases(sk, dev, gen, valid_h, valid_w, kw_pk, kw_st):
+    """Phase 3's rare paths at the lane's shapes: keypoint maps of uniform
+    noise keep about a ninth of their pixels, so every NMS band keeps more
+    than K (the in-band sort) and every channel more than the select
+    block's buffer (the merge in rounds); limb endpoints spread over the
+    whole map make almost every segment take all S samples.  Each kernel
+    is held to its plain version: integers exactly, floats bit for bit."""
+    import torch
+
+    from improved_body_parts_torch.ops import cuda_peaks
+
+    noise = torch.rand((BATCH, HEIGHT, WIDTH, sk.num_layers), device=dev,
+                       generator=gen)
+    kp = noise[..., sk.heat_start:sk.heat_start + sk.num_parts]
+    paf = noise[..., :sk.paf_layers]
+    got = cuda_peaks.topk_peaks_kernel(kp, valid_h, valid_w, **kw_pk)
+    want = cuda_peaks.topk_peaks_plain(kp, valid_h, valid_w, **kw_pk)
+    torch.cuda.synchronize()
+    compare("topk_peaks (dense)", got, want, {0, 1, 5, 6}, tol=0.0)
+    least, most = int(want[6].min()), int(want[6].max())
+    check(least > 4096, f"topk_peaks (dense): a channel keeps only {least} "
+          "peaks, too few for the merge in rounds")
+    shape = (BATCH, sk.num_parts, TOPK)
+    x_ref = torch.rand(shape, device=dev, generator=gen) * (WIDTH - 1)
+    y_ref = torch.rand(shape, device=dev, generator=gen) * (HEIGHT - 1)
+    got = cuda_peaks.limb_pair_stats_kernel(paf, x_ref, y_ref, **kw_st)
+    want = cuda_peaks.limb_pair_stats_plain(paf, x_ref, y_ref, **kw_st)
+    torch.cuda.synchronize()
+    compare("limb_pair_stats (dense)", got, want, {1, 2}, tol=0.0)
+    full = float((want[2] == SAMPLES).float().mean())
+    check(full > 0.99, f"limb_pair_stats (dense): only {full:.2%} of the "
+          f"pairs take all {SAMPLES} samples")
+    print(f"[3 kernels] dense noise: topk_peaks keeps {least}..{most} peaks "
+          f"a channel (in-band sort, merge in rounds), limb_pair_stats takes "
+          f"{SAMPLES} samples in {full:.2%} of {want[2].numel()} pairs; "
+          "both equal to their plain versions bit for bit")
+
+
+def generic_cases(kp, paf, x_ref, y_ref, valid_h, valid_w, kw_pk, kw_st):
+    """The instantiations the serve lane does not take, on its maps: 17
+    keypoint channels (the generic NMS copy path, an odd channel count)
+    with radius 1 (the generic refinement), and 12 limb samples (the
+    generic sample loop).  Each is held to its plain version: integers
+    exactly, floats bit for bit."""
+    import torch
+
+    from improved_body_parts_torch.ops import cuda_peaks
+
+    kw = dict(kw_pk, radius=1)
+    sub = kp[..., :17]
+    got = cuda_peaks.topk_peaks_kernel(sub, valid_h, valid_w, **kw)
+    want = cuda_peaks.topk_peaks_plain(sub, valid_h, valid_w, **kw)
+    kw = dict(kw_st, num_samples=12)
+    got_st = cuda_peaks.limb_pair_stats_kernel(paf, x_ref, y_ref, **kw)
+    want_st = cuda_peaks.limb_pair_stats_plain(paf, x_ref, y_ref, **kw)
+    torch.cuda.synchronize()
+    compare("topk_peaks (C=17, r=1)", got, want, {0, 1, 5, 6}, tol=0.0)
+    compare("limb_pair_stats (S=12)", got_st, want_st, {1, 2}, tol=0.0)
+    print("[3 kernels] generic instantiations: topk_peaks at C=17, r=1 and "
+          "limb_pair_stats at S=12 equal to their plain versions bit for bit")
 
 
 def focal_kernels(cfg, dev):
@@ -251,16 +394,22 @@ def focal_kernels(cfg, dev):
     in_bytes = sum(p.numel() + g.numel() + m.numel() + c
                    for p, g, m in scales) * 4
     pred_elems = sum(p.numel() for p, _, _ in scales)
+    fwd_step = one_step(cuda_focal.focal_fwd_kernel)
+    bwd_step = one_step(cuda_focal.focal_bwd_kernel, ct)
     return {
         "focal_fwd": dict(
             err=fwd_err,
-            ms=cuda_ms(one_step(cuda_focal.focal_fwd_kernel), 20),
+            ms=cuda_ms(fwd_step, 20),
+            device_ms=sum(device_ms(fwd_step, FOCAL_FWD_PASSES,
+                                    len(scales)).values()),
             plain_ms=cuda_ms(one_step(cuda_focal.focal_fwd_plain), 5),
             bytes=in_bytes + 5 * stacks * 4,
             ops=pred_elems * 10),  # compare, select, 2 sub, abs, 4 mul, add
         "focal_bwd": dict(
             err=0.0,
-            ms=cuda_ms(one_step(cuda_focal.focal_bwd_kernel, ct), 20),
+            ms=cuda_ms(bwd_step, 20),
+            device_ms=sum(device_ms(bwd_step, FOCAL_BWD_PASSES,
+                                    len(scales)).values()),
             plain_ms=cuda_ms(one_step(cuda_focal.focal_bwd_plain, ct), 5),
             bytes=in_bytes + 5 * stacks * 4 + pred_elems * 4,
             ops=pred_elems * 16),
@@ -530,7 +679,7 @@ def main() -> int:
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for stem, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(s in line for s in ("registers", "spill", "entry func")):
                 print(f"[2 build] {stem}.cu: {line.strip()}")
 
     # ------------------------------------------------------- 3. kernels
@@ -559,35 +708,47 @@ def main() -> int:
     pk_plain = cuda_peaks.topk_peaks_plain(kp, valid_h, valid_w, **kw_pk)
     pk_kernel = cuda_peaks.topk_peaks_kernel(kp, valid_h, valid_w, **kw_pk)
     torch.cuda.synchronize()
-    err = compare("topk_peaks", pk_kernel, pk_plain, {0, 1, 5, 6})
+    err = compare("topk_peaks", pk_kernel, pk_plain, {0, 1, 5, 6}, tol=0.0)
     n_kept = int(torch.clamp(pk_plain[6], max=TOPK).sum())
     check(n_kept > 0, "topk_peaks: the planted maps hold no peaks")
     out_bytes = BATCH * sk.num_parts * (TOPK * 6 * 4 + 4)
+    run_pk = lambda: cuda_peaks.topk_peaks_kernel(  # noqa: E731
+        kp, valid_h, valid_w, **kw_pk)
+    pk_passes = device_ms(run_pk, PEAKS_PASSES)
     results["topk_peaks"] = dict(
         err=err,
-        ms=cuda_ms(lambda: cuda_peaks.topk_peaks_kernel(
-            kp, valid_h, valid_w, **kw_pk), 20),
+        ms=cuda_ms(run_pk, 20),
+        device_ms=sum(pk_passes.values()),
         plain_ms=cuda_ms(lambda: cuda_peaks.topk_peaks_plain(
             kp, valid_h, valid_w, **kw_pk), 5),
         bytes=kp.numel() * 4 + out_bytes + 2 * BATCH * 4,
         ops=kp.numel() * 10)  # 9-tap max + threshold per pixel
+    floor_ms = read_floor_ms(kp)
+    print("[3 kernels] topk_peaks device time by pass (profiler, 20 calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in pk_passes.items())
+          + f"; reading each pixel's {sk.num_parts}-channel slice once and "
+          f"nothing else (peaks_read_probe) takes {floor_ms:.4f} ms [{smi}]")
 
     x_ref, y_ref = pk_plain[2], pk_plain[3]
     st_plain = cuda_peaks.limb_pair_stats_plain(paf, x_ref, y_ref, **kw_st)
     st_kernel = cuda_peaks.limb_pair_stats_kernel(paf, x_ref, y_ref,
                                                   **kw_st)
     torch.cuda.synchronize()
-    err = compare("limb_pair_stats", st_kernel, st_plain, {1, 2})
+    err = compare("limb_pair_stats", st_kernel, st_plain, {1, 2}, tol=0.0)
     samples = int(st_plain[2].sum())  # this run's gathered samples
     pairs = st_plain[0].numel()
+    run_st = lambda: cuda_peaks.limb_pair_stats_kernel(  # noqa: E731
+        paf, x_ref, y_ref, **kw_st)
     results["limb_pair_stats"] = dict(
         err=err,
-        ms=cuda_ms(lambda: cuda_peaks.limb_pair_stats_kernel(
-            paf, x_ref, y_ref, **kw_st), 20),
+        ms=cuda_ms(run_st, 20),
+        device_ms=sum(device_ms(run_st, LIMBS_PASSES).values()),
         plain_ms=cuda_ms(lambda: cuda_peaks.limb_pair_stats_plain(
             paf, x_ref, y_ref, **kw_st), 5),
         bytes=samples * 4 + 2 * x_ref.numel() * 4 + pairs * 4 * 4,
         ops=samples * 8 + pairs * 12)
+    dense_cases(sk, dev, gen, valid_h, valid_w, kw_pk, kw_st)
+    generic_cases(kp, paf, x_ref, y_ref, valid_h, valid_w, kw_pk, kw_st)
 
     # the walk on the lane's own candidates, and on random prefix-valid
     # candidate sets that make it take many steps
@@ -637,10 +798,12 @@ def main() -> int:
           f"({asm_ms / max(rounds, 1):.3f} ms a round), {found} people in "
           f"{BATCH} images [{smi}]")
     rows = limit.numel()
+    run_walk = lambda: cuda_assembly.candidate_walk_kernel(  # noqa: E731
+        *walk_in, TOPK)
     results["candidate_walk"] = dict(
         err=0.0,
-        ms=cuda_ms(lambda: cuda_assembly.candidate_walk_kernel(
-            *walk_in, TOPK), 20),
+        ms=cuda_ms(run_walk, 20),
+        device_ms=sum(device_ms(run_walk, WALK_PASSES).values()),
         plain_ms=cuda_ms(lambda: cuda_assembly.candidate_walk_plain(
             *walk_in, TOPK), 5),
         bytes=rows * m_cap * 4 * 4 + rows * 4,
@@ -651,8 +814,9 @@ def main() -> int:
                                   r["ops"] / FP32_OPS_PER_S)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["ops"] / FP32_OPS_PER_S else "operations")
-        print(f"[3 kernels] {kname}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        print(f"[3 kernels] {kname}: kernel {r['ms']:.4f} ms (wrapper call, "
+              f"events), {r['device_ms']:.4f} ms on the device (profiler), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes']} B), max abs err "
               f"{r['err']:.3g}; library_ms: none (no single PyTorch call "
               f"computes this function) [{smi}]")
@@ -785,6 +949,7 @@ def main() -> int:
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k],
                     max_abs_err=r["err"], ms=r["ms"],
+                    device_ms=r["device_ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None)
                for k, r in results.items()]

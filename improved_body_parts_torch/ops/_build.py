@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 #: per-source nvcc output, with ptxas's report of registers, shared
 #: memory and spills (``-Xptxas -v``)
 build_log: Dict[str, str] = {}
@@ -97,10 +98,14 @@ def function(stem: str, name: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point ``name`` of ``csrc/<stem>.cu`` (every library is
     built on first use) with its argument types declared (pointers and
     the stream as ``c_void_p``) and an ``int`` result (a launcher's
-    ``cudaError_t``)."""
-    fn = getattr(build_all()[stem], name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    ``cudaError_t``).  The handle is made once and cached: later calls
+    take no lock and declare nothing."""
+    fn = _fns.get((stem, name))
+    if fn is None:
+        fn = getattr(build_all()[stem], name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[(stem, name)] = fn
     return fn
 
 

@@ -17,6 +17,7 @@ attribute (``topk_peaks_kernel.launches``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -25,13 +26,37 @@ import torch.nn.functional as F
 from . import _build
 
 NEG = -1e9  # the masked value of topk_peaks (the JAX package's _NEG)
-TILE_PIXELS = 512  # pixels per NMS block, the most peaks a tile keeps:
-#                   TILE in csrc/peaks.cu
+MAX_K = 512  # MAX_K in csrc/peaks.cu
+MAX_PEAK_CHANNELS = 64  # 2 * MAX_PAIRS in csrc/peaks.cu
+INT32_MAX = 2 ** 31 - 1  # the kernels address the maps with 32-bit offsets
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
+_TOPK_ARGS = (_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _F, _I, _I,
+              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)
+_LIMBS_ARGS = (_P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+               _I, _F, _P, _P, _P, _P, _P)
+
+
+def _check_offsets(name: str, t: torch.Tensor) -> None:
+    """Raise when the largest element offset of ``t`` does not fit a
+    signed 32-bit int, the kernels' address arithmetic."""
+    last = sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+    if t.numel() and last > INT32_MAX:
+        raise ValueError(f"{name}: a {tuple(t.shape)} view with strides "
+                         f"{t.stride()} reaches element offset {last}, past "
+                         "the kernel's 32-bit offsets")
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_channels(limbs_from: Tuple[int, ...], limbs_to: Tuple[int, ...],
+                   device: torch.device) -> torch.Tensor:
+    """The limbs' endpoint channels on ``device``, "from" then "to" (int32,
+    made once per device and skeleton)."""
+    return torch.tensor(limbs_from + limbs_to, device=device,
+                        dtype=torch.int32)
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -136,42 +161,44 @@ def topk_peaks_kernel(heat: torch.Tensor, valid_h: torch.Tensor,
                       valid_w: torch.Tensor, *, thre: float, k: int,
                       radius: int) -> Tuple[torch.Tensor, ...]:
     """:func:`topk_peaks_plain` on the card: ``csrc/peaks.cu``, two
-    launches (tiled NMS, then per-channel select + refine)."""
-    _require_cuda("topk_peaks", heat, valid_h, valid_w)
+    launches (banded NMS, then per-channel select + refine)."""
     if heat.dtype != torch.float32 or heat.dim() != 4:
         raise ValueError(f"topk_peaks: heat must be (N, H, W, C) float32, "
                          f"got {tuple(heat.shape)} {heat.dtype}")
     n, h, w, c = heat.shape
-    if not 1 <= k <= min(TILE_PIXELS, h * w) or radius < 0:
+    if not 1 <= k <= min(MAX_K, h * w) or radius < 0:
         raise ValueError(f"topk_peaks: k={k}, radius={radius} out of range "
                          f"for a {h}x{w} map")
+    if not 1 <= c <= MAX_PEAK_CHANNELS:
+        raise ValueError(f"topk_peaks: {c} channels, the kernel takes 1.."
+                         f"{MAX_PEAK_CHANNELS}")
+    _check_offsets("topk_peaks", heat)
+    _require_cuda("topk_peaks", heat, valid_h, valid_w)
     dev = heat.device
     vh = valid_h.to(device=dev, dtype=torch.int32).contiguous()
     vw = valid_w.to(device=dev, dtype=torch.int32).contiguous()
     if vh.shape != (n,) or vw.shape != (n,):
         raise ValueError("topk_peaks: valid_h/valid_w must be (N,)")
-    tiles_fn = _build.function("peaks", "ibp_topk_peaks_tiles", (_I, _I))
-    ntiles = tiles_fn(h, w)
+    ntiles = _build.function("peaks", "ibp_topk_peaks_tiles", (_I, _I))(h, w)
     i32 = dict(device=dev, dtype=torch.int32)
     f32 = dict(device=dev, dtype=torch.float32)
-    count = torch.zeros((n, c), **i32)
     tile_val = torch.empty((n, c, ntiles, k), **f32)
     tile_idx = torch.empty((n, c, ntiles, k), **i32)
     tile_n = torch.empty((n, c, ntiles), **i32)
-    xs, ys, valid = (torch.empty((n, c, k), **i32) for _ in range(3))
+    count = torch.empty((n, c), **i32)
+    xs, ys = (torch.empty((n, c, k), **i32) for _ in range(2))
     x_ref, y_ref, score = (torch.empty((n, c, k), **f32) for _ in range(3))
-    fn = _build.function("peaks", "ibp_topk_peaks", (
-        _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _F, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P))
+    valid = torch.empty((n, c, k), device=dev, dtype=torch.bool)
+    fn = _build.function("peaks", "ibp_topk_peaks", _TOPK_ARGS)
     err = fn(heat.data_ptr(), *heat.stride(), n, h, w, c, vh.data_ptr(),
-             vw.data_ptr(), float(thre), k, radius, count.data_ptr(),
-             tile_val.data_ptr(), tile_idx.data_ptr(), tile_n.data_ptr(),
+             vw.data_ptr(), float(thre), k, radius, tile_val.data_ptr(),
+             tile_idx.data_ptr(), tile_n.data_ptr(), count.data_ptr(),
              xs.data_ptr(), ys.data_ptr(), x_ref.data_ptr(),
              y_ref.data_ptr(), score.data_ptr(), valid.data_ptr(),
              _stream(dev))
     _build.check(err, "topk_peaks")
     topk_peaks_kernel.launches += 1
-    return xs, ys, x_ref, y_ref, score, valid.bool(), count
+    return xs, ys, x_ref, y_ref, score, valid, count
 
 
 topk_peaks_kernel.launches = 0
@@ -240,10 +267,11 @@ def limb_pair_stats_kernel(paf: torch.Tensor, x_ref: torch.Tensor,
                            thre2: float) -> Tuple[torch.Tensor, ...]:
     """:func:`limb_pair_stats_plain` on the card: ``csrc/limbs.cu``,
     one thread per (image, limb, A slot, B slot)."""
-    _require_cuda("limb_pair_stats", paf, x_ref, y_ref)
     if paf.dtype != torch.float32 or paf.dim() != 4:
         raise ValueError(f"limb_pair_stats: paf must be (N, H, W, L) "
                          f"float32, got {tuple(paf.shape)} {paf.dtype}")
+    _check_offsets("limb_pair_stats", paf)
+    _require_cuda("limb_pair_stats", paf, x_ref, y_ref)
     n, h, w, n_limbs = paf.shape
     if len(limbs_from) != n_limbs or len(limbs_to) != n_limbs:
         raise ValueError("limb_pair_stats: one (from, to) pair per channel")
@@ -252,26 +280,26 @@ def limb_pair_stats_kernel(paf: torch.Tensor, x_ref: torch.Tensor,
     if num_samples < 1:
         raise ValueError("limb_pair_stats: num_samples must be >= 1")
     _, c, k = x_ref.shape
-    ends = tuple(limbs_from) + tuple(limbs_to)
-    if min(ends) < 0 or max(ends) >= c:
+    la, lb = tuple(map(int, limbs_from)), tuple(map(int, limbs_to))
+    if min(la + lb) < 0 or max(la + lb) >= c:
         raise ValueError("limb_pair_stats: limb endpoint out of range")
+    if n * n_limbs * k * k > INT32_MAX or n * c * k > INT32_MAX:
+        raise ValueError("limb_pair_stats: too many pairs for the kernel's "
+                         "32-bit indices")
     dev = paf.device
     xr = x_ref.to(torch.float32).contiguous()
     yr = y_ref.to(torch.float32).contiguous()
-    la = torch.tensor(limbs_from, device=dev, dtype=torch.int32)
-    lb = torch.tensor(limbs_to, device=dev, dtype=torch.int32)
+    limbs = _limb_channels(la, lb, dev)
     shape = (n, n_limbs, k, k)
     mean = torch.empty(shape, device=dev, dtype=torch.float32)
     norm = torch.empty(shape, device=dev, dtype=torch.float32)
     above = torch.empty(shape, device=dev, dtype=torch.int32)
     m = torch.empty(shape, device=dev, dtype=torch.int32)
-    fn = _build.function("limbs", "ibp_limb_pair_stats", (
-        _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
-        _I, _F, _P, _P, _P, _P, _P))
+    fn = _build.function("limbs", "ibp_limb_pair_stats", _LIMBS_ARGS)
     err = fn(paf.data_ptr(), *paf.stride(), n, h, w, n_limbs,
-             xr.data_ptr(), yr.data_ptr(), c, k, la.data_ptr(),
-             lb.data_ptr(), num_samples, float(thre2), mean.data_ptr(),
-             above.data_ptr(), m.data_ptr(), norm.data_ptr(), _stream(dev))
+             xr.data_ptr(), yr.data_ptr(), c, k, limbs.data_ptr(),
+             num_samples, float(thre2), mean.data_ptr(), above.data_ptr(),
+             m.data_ptr(), norm.data_ptr(), _stream(dev))
     _build.check(err, "limb_pair_stats")
     limb_pair_stats_kernel.launches += 1
     return mean, above, m, norm

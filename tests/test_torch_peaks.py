@@ -89,6 +89,55 @@ def test_topk_peaks_exact_ties_order_by_index():
     assert got.xs[0, 0].tolist()[:5] == [12, 4, 20, 4, 20]
 
 
+SERVE_K, SERVE_R, SERVE_S = 64, 2, 20  # the kernels' compile-time sizes
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_topk_peaks_at_kernel_sizes_matches_xla_and_pallas(dense):
+    """The plain version at the serve lane's C = 18, K = 64, r = 2 on
+    small maps.  Dense uniform noise keeps about a ninth of the pixels, so
+    every channel keeps more than K (the kernel's in-band sort); sparse
+    spikes above the noise keep fewer than K (the -1e9 fill)."""
+    n, h, w = 2, 96, 128
+    rng = np.random.default_rng(21 + dense)
+    if dense:
+        heat = rng.random((n, h, w, SK.num_parts), dtype=np.float32)
+    else:
+        heat = np.stack([_rand_peaks_fixture(rng, h, w, SK.num_parts,
+                                             peaky=0.002) for _ in range(n)])
+    vh, vw = np.array([h, 80]), np.array([w, 101])
+    kw = dict(thre=0.1 if dense else 0.25, k=SERVE_K, radius=SERVE_R)
+    got = tpeaks.topk_peaks(torch.from_numpy(heat), torch.from_numpy(vh),
+                            torch.from_numpy(vw), **kw)
+    if dense:
+        assert int(got.count.min()) > SERVE_K
+    else:
+        assert int(got.count.max()) < SERVE_K  # the -1e9 fill runs
+    for i in range(n):
+        want = jpeaks.topk_peaks(heat[i], int(vh[i]), int(vw[i]), **kw)
+        _assert_close(want, _image(got, i), 1e-5)
+        pallas = topk_peaks_pallas(heat[i], int(vh[i]), int(vw[i]),
+                                   interpret=True, **kw)
+        _assert_close(pallas, _image(got, i), 1e-5)
+
+
+def test_limb_pair_stats_full_samples_matches_xla_and_pallas():
+    """K = 64 endpoints spread over a 96x128 map: almost every segment
+    takes all S = 20 samples, the kernel's fully unrolled case."""
+    paf, x_ref, y_ref = _limb_inputs(23, 96, 128, SERVE_K)
+    kw = dict(limbs_from=LIMBS_FROM, limbs_to=LIMBS_TO,
+              num_samples=SERVE_S, thre2=0.05)
+    got = tpeaks.limb_pair_stats(torch.from_numpy(paf),
+                                 torch.from_numpy(x_ref),
+                                 torch.from_numpy(y_ref), **kw)
+    assert float((got.num_samples == SERVE_S).float().mean()) > 0.9
+    for i in range(len(paf)):
+        for want in (jpeaks.limb_pair_stats(paf[i], x_ref[i], y_ref[i], **kw),
+                     limb_pair_stats_pallas(paf[i], x_ref[i], y_ref[i],
+                                            interpret=True, **kw)):
+            _assert_close(want, _image(got, i), 1e-6, rtol=1e-6)
+
+
 def _limb_inputs(seed, h, w, k, n=2):
     rng = np.random.default_rng(seed)
     paf = rng.normal(0.0, 0.2, (n, h, w, SK.paf_layers)).astype(np.float32)
@@ -168,3 +217,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_assembly.candidate_walk_kernel(z, z, z, torch.zeros(1), 4)
     assert cuda_peaks.topk_peaks_kernel.launches == 0
+
+
+@pytest.mark.parametrize("shape", [(8, 640, 896, 50), (1, 2, 3, 4)])
+def test_kernel_wrappers_check_32bit_offsets(shape):
+    """The kernels address the maps with 32-bit offsets: a view past 2^31
+    elements is refused before any launch (meta tensors, no memory); the
+    serve lane's (8, 640, 896, 50) maps and their slices fit."""
+    from improved_body_parts_torch.ops import cuda_peaks
+
+    maps = torch.empty(shape, device="meta")
+    cuda_peaks._check_offsets("maps", maps[..., :2])
+    per_image = maps[0].numel()
+    big = torch.empty((2 ** 31 // per_image + 2,) + shape[1:],
+                      device="meta")[..., :2]
+    one = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_peaks.topk_peaks_kernel(big, one, one, thre=0.1, k=2, radius=1)
+    xy = torch.zeros((1, 2, 2))
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_peaks.limb_pair_stats_kernel(
+            big, xy, xy, limbs_from=(0, 1), limbs_to=(1, 0), num_samples=4,
+            thre2=0.1)
+    assert cuda_peaks.topk_peaks_kernel.launches == 0
+    assert cuda_peaks.limb_pair_stats_kernel.launches == 0
