@@ -18,22 +18,30 @@ failed phase ends the run with a non-zero exit code:
    block's buffer) and gives limb_pair_stats segments of all 20 samples,
    and at the sizes the lane does not compile for (17 channels, radius 1,
    12 samples): integer outputs exactly, topk_peaks' and limb_pair_stats'
-   floats bit for bit.  The focal-loss kernels at the canonical training shapes (4
-   stacks, batch 4, the 5 scales 128^2..8^2, 50 channels) on sparse GT and
-   on a case planted on the kink: the forward within rel 1e-5, the
-   backward bit for bit.  Median times of kernel (CUDA events around the
-   wrapper call) and plain version, and each kernel's device time apart
-   from its wrapper (torch.profiler over 20 calls; topk_peaks by pass,
-   beside what reading its maps' slices alone takes);
+   floats bit for bit.  The fused greedy assembly on the lane's planted
+   peaks and candidates and on random dense records (K=64, M=128, 30
+   limbs), at p_max 32, 1 (a full table) and 64 and with remove_recon 1:
+   every field bit for bit, with the longest chain's walk steps and
+   connections.  The focal-loss kernels at the canonical training shapes
+   (4 stacks, batch 4, the 5 scales 128^2..8^2, 50 channels) on sparse GT
+   and on a case planted on the kink: the forward within rel 1e-5 and the
+   same bits in two runs, the backward bit for bit.  Median times of
+   kernel (CUDA events around the wrapper call) and plain version, and
+   each kernel's device time apart from its wrapper (torch.profiler over
+   20 calls; topk_peaks by pass, beside what reading its maps' slices
+   alone takes; focal_fwd by scale);
 4. planted serve: a stub network that returns planted people's maps, a few
    requests of different sizes through ``Predictor.predict_decoded_batch``
    and ``decode_device``; every planted person decodes, keypoints within
-   1 px;
+   1 px, and the fused assembly kernel launched;
 5. full width: the ``canonical`` IMHN (4 stacks, 128,998,760 parameters)
    from a seeded init in bf16 autocast, ``predict_decoded_batch`` on 8
    images of 480x640 (the 640x896 bucket).  The decode kernels' launch
    counters are set to 0 just before this run and read just after; every
-   decode kernel must have launched;
+   decode kernel must have launched.  Then ``predict_decoded_batch_async``
+   must return with its device work still queued (an event recorded as
+   it returns has not completed): no read back to the host before
+   ``resolve()``;
 6. training at full width: ``canonical`` in train mode from a seeded init,
    bf16 autocast, SGD; drawn synthetic people through the port's
    ``Transformer`` + ``Heatmapper`` (augmented, 512x512, batch 4, uint8
@@ -68,8 +76,9 @@ FLOAT_TOL = 1e-5
 # the __global__ kernels each wrapper launches, by source, for device_ms
 PEAKS_PASSES = ("peaks_nms_kernel", "peaks_select_kernel")
 LIMBS_PASSES = ("limb_pair_stats_kernel",)
-WALK_PASSES = ("candidate_walk_kernel",)
-FOCAL_FWD_PASSES = ("focal_fwd_partial", "focal_fwd_final")
+ASSEMBLY_PASSES = ("greedy_assemble_kernel",)
+P_MAX = 32                                  # the lane's person table
+FOCAL_FWD_PASSES = ("focal_fwd",)
 FOCAL_BWD_PASSES = ("focal_bwd",)
 
 # internal part order of the canonical skeleton, unit-box positions of a
@@ -333,6 +342,155 @@ def generic_cases(kp, paf, x_ref, y_ref, valid_h, valid_w, kw_pk, kw_st):
           "limb_pair_stats at S=12 equal to their plain versions bit for bit")
 
 
+def random_records(sk, dev, rng, limbs_from, limbs_to):
+    """Batch-8 peak and candidate records at the lane's sizes (K = 64,
+    M = 128, 30 limbs), drawn as ``tests/test_assembly.py``
+    ``_rand_records`` draws them: candidates point only at valid peaks, in
+    rank-descending prior order, validity a prefix; dense, so every channel
+    keeps 40..64 peaks and about half the limbs fill all M slots."""
+    import torch
+
+    from improved_body_parts_torch.ops.peaks import LimbCandidates, TopKPeaks
+
+    c, k, m, n_limbs = sk.num_parts, TOPK, 2 * TOPK, len(limbs_from)
+    counts = rng.integers(40, k + 1, (BATCH, c)).astype(np.int32)
+    valid = np.zeros((BATCH, c, k), bool)
+    score = rng.uniform(0.1, 1.0, (BATCH, c, k)).astype(np.float32)
+    x_ref = rng.uniform(0, WIDTH - 1, (BATCH, c, k)).astype(np.float32)
+    y_ref = rng.uniform(0, HEIGHT - 1, (BATCH, c, k)).astype(np.float32)
+    shape = (BATCH, n_limbs, m)
+    slot_a, slot_b = np.zeros(shape, np.int32), np.zeros(shape, np.int32)
+    prior, norm = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    cvalid = np.zeros(shape, bool)
+    ccount = np.zeros(shape[:2], np.int32)
+    for i in range(BATCH):
+        for ch in range(c):
+            valid[i, ch, rng.permutation(k)[:counts[i, ch]]] = True
+        for li, (ia, ib) in enumerate(zip(limbs_from, limbs_to)):
+            a, b = np.nonzero(valid[i, ia])[0], np.nonzero(valid[i, ib])[0]
+            pairs = np.stack(np.meshgrid(a, b, indexing="ij"), -1)
+            pairs = rng.permutation(pairs.reshape(-1, 2))
+            n = m if rng.uniform() < 0.5 else int(rng.integers(0, m + 1))
+            sa, sb = pairs[:n, 0], pairs[:n, 1]
+            slot_a[i, li, :n], slot_b[i, li, :n] = sa, sb
+            prior[i, li, :n] = np.sort(rng.uniform(0.05, 2.0, n))[::-1]
+            norm[i, li, :n] = np.hypot(x_ref[i, ia, sa] - x_ref[i, ib, sb],
+                                       y_ref[i, ia, sa] - y_ref[i, ib, sb])
+            cvalid[i, li, :n] = True
+            ccount[i, li] = len(pairs)
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    xs, ys = np.rint(x_ref).astype(np.int32), np.rint(y_ref).astype(np.int32)
+    peaks = TopKPeaks(on(xs), on(ys), on(x_ref), on(y_ref), on(score),
+                      on(valid), on(counts))
+    cands = LimbCandidates(on(slot_a), on(slot_b), on(prior), on(norm),
+                           on(cvalid), on(ccount))
+    return peaks, cands
+
+
+def chain_length(peaks, cands, limbs_from, limbs_to):
+    """(walk steps, connections) of the longest image's chain, then of the
+    whole batch: per limb the candidates the walk examines (to the first
+    invalid one, or to the connection that reaches the limit) and the
+    connections it takes."""
+    import torch
+
+    from improved_body_parts_torch.ops.cuda_assembly import (
+        candidate_walk_plain,
+    )
+
+    k = peaks.valid.shape[-1]
+    n_peaks = torch.clamp(peaks.count, max=k).long()
+    limit = torch.minimum(n_peaks[:, list(limbs_from)],
+                          n_peaks[:, list(limbs_to)])
+    sel = candidate_walk_plain(cands.slot_a, cands.slot_b, cands.valid,
+                               limit, k).long()
+    m_cap = sel.shape[-1]
+    taken = sel.sum(-1)
+    last = (sel * torch.arange(1, m_cap + 1, device=sel.device)).amax(-1)
+    prefix = torch.cumprod(cands.valid.long(), -1).sum(-1)
+    steps = torch.where(limit == 0, 0,
+                        torch.where(taken >= limit, last, prefix))
+    steps, taken = steps.sum(-1), taken.sum(-1)
+    i = int(torch.argmax(steps + taken))
+    return int(steps[i]), int(taken[i]), int(steps.sum()), int(taken.sum())
+
+
+def assembly_cases(sk, dev, params, peaks, cands, rng, smi):
+    """Phase 3 for the fused assembly: ``greedy_assemble_kernel`` against
+    ``greedy_assemble_plain`` on the card, every ``AssemblyResult`` field
+    bit for bit (-0.0 equal to 0.0), on (a) the lane's own planted peaks
+    and candidates at p_max 32, (b) random dense records at p_max 32, at
+    p_max 1 (which fills the table: person_overflow) and at remove_recon 1
+    (the compete rule), and (c) p_max 64.  Each case times the wrapper
+    call (events), the kernel on the device (profiler) and the plain
+    version (events, one call); the planted case's numbers are the
+    kernel's row in the JSON line."""
+    import torch
+
+    from improved_body_parts_torch.ops import cuda_assembly
+
+    limbs_from = tuple(a for a, _ in sk.limbs_conn)
+    limbs_to = tuple(b for _, b in sk.limbs_conn)
+    base = dict(limbs_from=limbs_from, limbs_to=limbs_to,
+                num_parts=sk.num_parts, p_max=P_MAX,
+                len_rate=params.len_rate,
+                connection_tole=params.connection_tole,
+                remove_recon=params.remove_recon,
+                min_parts=params.min_parts,
+                min_mean_score=params.min_mean_score)
+    rand = random_records(sk, dev, rng, limbs_from, limbs_to)
+    cases = [("planted", peaks, cands, {}),
+             ("random dense", *rand, {}),
+             ("random dense", *rand, dict(p_max=1)),
+             ("random dense", *rand, dict(remove_recon=1)),
+             ("planted", peaks, cands, dict(p_max=64)),
+             ("random dense", *rand, dict(p_max=64))]
+    row = None
+    for label, pk, cd, kw in cases:
+        kw = dict(base, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = cuda_assembly.greedy_assemble_plain(pk, cd, **kw)
+        end.record()
+        got = cuda_assembly.greedy_assemble_kernel(pk, cd, **kw)
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        label = (f"{label}, p_max {kw['p_max']}, remove_recon "
+                 f"{kw['remove_recon']}")
+        compare(f"greedy_assemble ({label})", got, want, {1, 2, 3, 4, 5},
+                tol=0.0)
+        people, full = int(want[2].sum()), int(want[5].sum())
+        if kw["p_max"] == 1:
+            check(full > 0, f"greedy_assemble ({label}): no image filled "
+                  "its one-person table")
+        run = lambda: cuda_assembly.greedy_assemble_kernel(  # noqa: E731
+            pk, cd, **kw)
+        ms = cuda_ms(run, 20)
+        dev_ms = sum(device_ms(run, ASSEMBLY_PASSES).values())
+        steps, conns, all_steps, all_conns = chain_length(
+            pk, cd, limbs_from, limbs_to)
+        print(f"[3 kernels] greedy_assemble ({label}): equal to the plain "
+              f"version bit for bit; {people} people, {full} images with a "
+              f"full table; kernel {ms:.4f} ms (wrapper call, events), "
+              f"{dev_ms:.4f} ms on the device, plain {plain_ms:.2f} ms; "
+              f"longest chain {steps} walk steps and {conns} connections, "
+              f"{1e3 * dev_ms / max(steps, 1):.3f} us a walk step [{smi}]")
+        if row is None:
+            n, c, k = pk.score.shape
+            lm = cd.valid[0].numel()
+            per_image = (c * k + c) * 4 + lm * 17 + cd.count.shape[1] * 4
+            out = (kw["p_max"] * (sk.num_parts + 2) * 2 * 4 + kw["p_max"]
+                   + 4 + 3)
+            row = dict(err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bytes=n * (per_image + out) + 8 * len(limbs_from),
+                       ops=all_steps * 8 + all_conns * 40)
+    return row
+
+
 def focal_kernels(cfg, dev):
     """Phase 3 for the focal-loss kernels: forward and backward against
     their plain versions at the canonical training shapes, on sparse GT
@@ -396,6 +554,17 @@ def focal_kernels(cfg, dev):
     pred_elems = sum(p.numel() for p, _, _ in scales)
     fwd_step = one_step(cuda_focal.focal_fwd_kernel)
     bwd_step = one_step(cuda_focal.focal_bwd_kernel, ct)
+    first, again = fwd_step(), fwd_step()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "focal_fwd: two runs on the same inputs give different bits")
+    split = []
+    for pred, gt, mask in scales:
+        by_pass = device_ms(lambda: cuda_focal.focal_fwd_kernel(
+            pred, gt, mask, chan), FOCAL_FWD_PASSES)
+        split.append(f"{pred.shape[2]}^2: " + " + ".join(
+            f"{k} {v:.4f}" for k, v in by_pass.items()))
+    print("[3 kernels] focal_fwd device ms a call by scale and pass "
+          f"(profiler, 20 calls; same bits in two runs): {'; '.join(split)}")
     return {
         "focal_fwd": dict(
             err=fwd_err,
@@ -645,7 +814,6 @@ def main() -> int:
     from improved_body_parts_torch.infer.resize import upsample_cubic
     from improved_body_parts_torch.models import build_model
     from improved_body_parts_torch.ops import _build, cuda_assembly, cuda_peaks
-    from improved_body_parts_torch.ops.assembly import greedy_assemble
     from improved_body_parts_torch.ops.peaks import (
         PairStats,
         TopKPeaks,
@@ -750,64 +918,15 @@ def main() -> int:
     dense_cases(sk, dev, gen, valid_h, valid_w, kw_pk, kw_st)
     generic_cases(kp, paf, x_ref, y_ref, valid_h, valid_w, kw_pk, kw_st)
 
-    # the walk on the lane's own candidates, and on random prefix-valid
-    # candidate sets that make it take many steps
     peaks = TopKPeaks(*pk_plain)
     cands = limb_topk_from_stats(PairStats(*st_plain), peaks, valid_h,
                                  limbs_from=limbs_from, limbs_to=limbs_to,
                                  connect_ration=params.connect_ration,
                                  m_cap=2 * TOPK)
-    n_peaks = torch.clamp(peaks.count, max=TOPK)
-    la = torch.as_tensor(limbs_from, device=dev)
-    lb = torch.as_tensor(limbs_to, device=dev)
-    limit = torch.minimum(n_peaks[:, la], n_peaks[:, lb])
-    walk_in = (cands.slot_a, cands.slot_b, cands.valid, limit)
-    check(bool(cands.valid.any()), "walk: the planted maps give no "
-          "accepted limb candidates")
-    m_cap = 2 * TOPK
-    shape = (BATCH, len(limbs_from), m_cap)
-    counts = torch.as_tensor(rng.integers(0, m_cap + 1, shape[:2]),
-                             device=dev)
-    rand_in = (torch.as_tensor(rng.integers(0, TOPK, shape), device=dev),
-               torch.as_tensor(rng.integers(0, TOPK, shape), device=dev),
-               torch.arange(m_cap, device=dev) < counts[..., None],
-               torch.as_tensor(rng.integers(0, TOPK + 1, shape[:2]),
-                               device=dev))
-    for label, args in (("lane", walk_in), ("random", rand_in)):
-        got = cuda_assembly.candidate_walk_kernel(*args, TOPK)
-        want = cuda_assembly.candidate_walk_plain(*args, TOPK)
-        torch.cuda.synchronize()
-        compare(f"candidate_walk ({label})", (got,), (want,), {0})
-        print(f"[3 kernels] candidate_walk ({label}): "
-              f"{int(want.sum())} of {int(args[2].sum())} valid candidates "
-              "taken, equal to the plain version")
-    asm_kw = dict(limbs_from=limbs_from, limbs_to=limbs_to,
-                  num_parts=sk.num_parts, p_max=32,
-                  len_rate=params.len_rate,
-                  connection_tole=params.connection_tole,
-                  remove_recon=params.remove_recon,
-                  min_parts=params.min_parts,
-                  min_mean_score=params.min_mean_score)
-    found = int(greedy_assemble(peaks, cands, **asm_kw).n_people.sum())
-    asm_ms = cuda_ms(lambda: greedy_assemble(peaks, cands, **asm_kw), 5)
-    # the table rules run one round per limb and selection rank
-    rounds = int(cuda_assembly.candidate_walk_plain(*walk_in, TOPK)
-                 .sum(-1).amax(0).sum())
-    print(f"[3 kernels] greedy_assemble (walk kernel + table rules) on the "
-          f"planted maps: {asm_ms:.3f} ms for {rounds} rounds "
-          f"({asm_ms / max(rounds, 1):.3f} ms a round), {found} people in "
-          f"{BATCH} images [{smi}]")
-    rows = limit.numel()
-    run_walk = lambda: cuda_assembly.candidate_walk_kernel(  # noqa: E731
-        *walk_in, TOPK)
-    results["candidate_walk"] = dict(
-        err=0.0,
-        ms=cuda_ms(run_walk, 20),
-        device_ms=sum(device_ms(run_walk, WALK_PASSES).values()),
-        plain_ms=cuda_ms(lambda: cuda_assembly.candidate_walk_plain(
-            *walk_in, TOPK), 5),
-        bytes=rows * m_cap * 4 * 4 + rows * 4,
-        ops=rows * m_cap * 6)
+    check(bool(cands.valid.any()), "greedy_assemble: the planted maps give "
+          "no accepted limb candidates")
+    results["greedy_assemble"] = assembly_cases(sk, dev, params, peaks,
+                                                cands, rng, smi)
     results.update(focal_kernels(cfg, dev))
     for kname, r in results.items():
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
@@ -826,7 +945,7 @@ def main() -> int:
     print("[3 kernels] launch counters after the comparisons: "
           f"topk_peaks {cuda_peaks.topk_peaks_kernel.launches}, "
           f"limb_pair_stats {cuda_peaks.limb_pair_stats_kernel.launches}, "
-          f"candidate_walk {cuda_assembly.candidate_walk_kernel.launches}")
+          f"greedy_assemble {cuda_assembly.greedy_assemble_kernel.launches}")
     del maps, kp, paf, grid, st_plain, st_kernel
 
     # -------------------------------------------------- 4. planted serve
@@ -838,7 +957,10 @@ def main() -> int:
                      model_params=InferenceModelParams(boxsize=HEIGHT))
     requests = [np.zeros((HEIGHT, w, 3), np.uint8)
                 for w in (WIDTH, 640, 768, WIDTH)]
+    cuda_assembly.greedy_assemble_kernel.launches = 0
     decoded = pred.predict_decoded_batch(requests)
+    asm_launches = cuda_assembly.greedy_assemble_kernel.launches
+    check(asm_launches > 0, "planted serve: greedy_assemble never launched")
     mapping = sk.dt_gt_mapping
     worst = 0.0
     for i, dec in enumerate(decoded):
@@ -856,7 +978,8 @@ def main() -> int:
     check(worst <= 1.0, f"planted keypoints off by {worst:.3f} px")
     print(f"[4 planted] {len(requests)} requests of widths "
           f"{[r.shape[1] for r in requests]}: {len(planted)} people each, "
-          f"ok, max keypoint error {worst:.3f} px")
+          f"ok, max keypoint error {worst:.3f} px; greedy_assemble launched "
+          f"{asm_launches} times")
 
     # --------------------------------------------------- 5. full width
     t0 = time.perf_counter()
@@ -874,7 +997,7 @@ def main() -> int:
 
     for fn in (cuda_peaks.topk_peaks_kernel,
                cuda_peaks.limb_pair_stats_kernel,
-               cuda_assembly.candidate_walk_kernel):
+               cuda_assembly.greedy_assemble_kernel):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -884,7 +1007,7 @@ def main() -> int:
     launches = {
         "topk_peaks": cuda_peaks.topk_peaks_kernel.launches,
         "limb_pair_stats": cuda_peaks.limb_pair_stats_kernel.launches,
-        "candidate_walk": cuda_assembly.candidate_walk_kernel.launches}
+        "greedy_assemble": cuda_assembly.greedy_assemble_kernel.launches}
     peak_mem = torch.cuda.max_memory_allocated()
     print(f"[5 full width] kernel launches in one predict_decoded_batch "
           f"of {BATCH}: {launches}")
@@ -919,6 +1042,29 @@ def main() -> int:
         pred.predict_decoded_batch(images)
         calls.append(1e3 * (time.perf_counter() - t0))
     total_ms = statistics.median(calls)
+
+    # the lane only enqueues: an event recorded as the async call returns
+    # is still pending behind the ~100 ms forward, and resolve() is the
+    # one read back to the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resolve = pred.predict_decoded_batch_async(images)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    returned = torch.cuda.Event()
+    returned.record()
+    pending = not returned.query()
+    again = resolve()
+    resolve_ms = 1e3 * (time.perf_counter() - t0)
+    check(pending, "full width: the device work was done when "
+          "predict_decoded_batch_async returned, so the lane read back to "
+          "the host before resolve()")
+    check(len(again) == BATCH and all(
+        d.subset.shape == (pred.assembly_pmax, sk.num_parts + 2, 2)
+        and np.isfinite(d.subset).all() for d in again),
+        "full width: malformed results from the async call")
+    print(f"[5 full width] predict_decoded_batch_async returned after "
+          f"{enqueue_ms:.2f} ms (host clock) with the device work still "
+          f"queued; resolve() returned at {resolve_ms:.2f} ms")
     print(f"[5 full width] host preprocessing {prep_ms:.2f} ms, "
           f"host-to-device copy {h2d_ms:.2f} ms, "
           f"forward+merge+upsample {fwd_ms:.2f} ms, "
@@ -927,7 +1073,7 @@ def main() -> int:
           f"timed call {wall_s * 1e3:.2f} ms), peak device memory "
           f"{peak_mem / 2**30:.2f} GiB [{smi}]")
 
-    del model, pred, bucket, lane_maps, out
+    del model, pred, bucket, lane_maps, out, resolve, again
     torch.cuda.empty_cache()
 
     # ---------------------------------------- 6. training at full width
@@ -939,8 +1085,8 @@ def main() -> int:
            "limb_pair_stats": (
                "improved_body_parts_torch/csrc/limbs.cu",
                "improved_body_parts_tpu/ops/pallas_peaks.py:224"),
-           "candidate_walk": (
-               "improved_body_parts_torch/csrc/walk.cu",
+           "greedy_assemble": (
+               "improved_body_parts_torch/csrc/assembly.cu",
                "improved_body_parts_tpu/ops/pallas_assembly.py:75"),
            "focal_fwd": ("improved_body_parts_torch/csrc/focal.cu",
                          "improved_body_parts_tpu/ops/pallas_focal.py:98"),

@@ -16,6 +16,8 @@ wrapper runs its kernel's plain PyTorch version instead.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -40,3 +42,14 @@ def use_kernel(t: torch.Tensor) -> bool:
         return False
     raise ValueError(f"unsupported device {t.device}: the port runs on "
                      "'cuda', or on 'cpu' when asked")
+
+
+@functools.lru_cache(maxsize=None)
+def device_tensor(values: tuple, device: torch.device,
+                  dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once per (values, device,
+    dtype) and shared: callers must not write to it.  A blocking copy from
+    host memory makes PyTorch wait for the stream's queued work, so the
+    serve lane takes its constant index tensors from here instead of
+    copying them at each call."""
+    return torch.tensor(values, dtype=dtype).to(device)

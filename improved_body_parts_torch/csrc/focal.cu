@@ -13,22 +13,35 @@
 // (p >= 0 ? 1 : -1): JAX's abs-VJP convention, +-1 at the kink.
 //
 // Bound on this card: bytes.  Both are streaming passes with a handful of
-// flops per element (the forward reads pred, gt and mask once; the
-// backward also writes dpred), so the design is coalesced 16-byte loads
-// of pred and gt (4 consecutive elements a thread, one integer division
-// a vector to find the pixel and channel), mask and chan through the
-// read-only cache, and enough blocks to fill the card.  The TPU kernel
-// accumulated the forward in an SMEM scalar over a sequential grid; blocks
-// here run in parallel and in no order, so the forward is a deterministic
-// two-pass reduction instead: (a) a grid over (chunk, stack) writes one
-// double partial per block, (b) one block per stack sums its partials in
-// a fixed order.  No float atomics, so the loss is the same bits every
-// run.  The backward evaluates the expression in the TPU kernel's order;
-// built with --fmad=false it equals the plain PyTorch version bit for bit.
+// flops per element: the forward reads pred, gt and mask once, the
+// backward also writes dpred.
+//
+// The forward is one launch a call.  Each block takes one chunk of the
+// (N, H, W, C) range for all S stacks (S <= FOCAL_MAX_S = 8; the canonical
+// model has 4), so gt, mask and chan are read once, not once per stack,
+// and keeps S double accumulators.  Chunks are a multiple of 1024
+// elements, sized by E alone (about FOCAL_TARGET_BLOCKS blocks fill the
+// card at 128^2; the 8^2 call takes 13 blocks of one float4 a thread), so
+// a shape always reduces in the same order.  A thread finds its pixel and
+// channel with one division and then steps both counters; mask is loaded
+// once a pixel and chan comes from shared memory.  Each block writes its
+// S partial sums, fences, and takes a ticket; the block that draws the
+// last ticket sums every stack's partials in index order, writes out[S]
+// and sets the ticket back to 0.  No float atomics: the loss is the same
+// bits every run.  The ticket is one int per device that the wrapper
+// keeps, so calls on one device share one stream (PyTorch's current
+// stream; two calls in flight at once on two streams would share it).
+// Offsets are 32-bit: the wrapper refuses S * E >= 2^31.
+//
+// The backward evaluates the expression in the TPU kernel's order; built
+// with --fmad=false it equals the plain PyTorch version bit for bit.
 #include <cuda_runtime.h>
 
 #define FOCAL_THREADS 256
-#define FOCAL_CHUNK 16384  // elements of one stack a forward block reduces
+#define FOCAL_MAX_S 8
+#define FOCAL_MAX_C 1024
+#define FOCAL_TARGET_BLOCKS 528  // 4 blocks on each of 132 SMs
+#define FOCAL_STEP (4 * FOCAL_THREADS)  // elements a block takes a pass
 
 __device__ __forceinline__ float focal_term(float p, float g, float m) {
   const float st = g >= 0.01f ? p : 1.0f - p;
@@ -49,75 +62,122 @@ __device__ __forceinline__ float focal_grad(float p, float g, float m,
   return grad * ct;
 }
 
-// Sum of `v` over the block, every thread's value in a fixed order; the
-// result is valid in thread 0.
-__device__ __forceinline__ double block_sum(double v) {
-  __shared__ double warp_sums[FOCAL_THREADS / 32];
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+// Sum of each thread's v[0..S) over the block, in a fixed order; the sums
+// are valid in thread 0.
+template <int S>
+__device__ __forceinline__ void block_sums(double (&v)[S]) {
+  __shared__ double warp_sums[S][FOCAL_THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[s] += __shfl_down_sync(0xffffffffu, v[s], off);
+    if (lane == 0) warp_sums[s][warp] = v[s];
+  }
   __syncthreads();
   if (warp == 0) {
-    v = lane < FOCAL_THREADS / 32 ? warp_sums[lane] : 0.0;
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      v[s] = lane < FOCAL_THREADS / 32 ? warp_sums[s][lane] : 0.0;
+      for (int off = 16; off > 0; off >>= 1)
+        v[s] += __shfl_down_sync(0xffffffffu, v[s], off);
+    }
   }
-  return v;
+  __syncthreads();  // warp_sums is free for the next call
 }
 
-// (a) partial[s * chunks + chunk] = sum of the loss terms of one chunk of
-// stack s.  VEC: E % 4 == 0 and 16-byte aligned pred / gt, so a thread
-// takes 4 consecutive elements with one float4 load of each.
-template <bool VEC>
+// Chunk size (elements of one stack a block reduces) for E, by shape alone.
+static int focal_chunk(int E) {
+  long long want = ((long long)E + FOCAL_TARGET_BLOCKS - 1) /
+                   FOCAL_TARGET_BLOCKS;
+  want = (want + FOCAL_STEP - 1) / FOCAL_STEP * FOCAL_STEP;
+  return (int)(want < FOCAL_STEP ? FOCAL_STEP : want);
+}
+
+// One block per chunk, all S stacks.  VEC: E % 4 == 0 and 16-byte aligned
+// pred and gt, so a thread takes 4 consecutive elements of each stack
+// with one float4 load each.
+template <int S, bool VEC>
 __global__ void __launch_bounds__(FOCAL_THREADS)
-focal_fwd_partial(const float* __restrict__ pred, const float* __restrict__ gt,
-                  const float* __restrict__ mask, const float* __restrict__ chan,
-                  long long E, int C, int chunks, double* __restrict__ partial) {
-  const int s = blockIdx.y;
-  const long long begin = (long long)blockIdx.x * FOCAL_CHUNK;
-  const long long end = min(begin + FOCAL_CHUNK, E);
-  const float* p = pred + (long long)s * E;
-  double acc = 0.0;
-  if (VEC) {
-    for (long long i = begin + 4LL * threadIdx.x; i < end;
-         i += 4LL * FOCAL_THREADS) {
-      const float4 pv = __ldg(reinterpret_cast<const float4*>(p + i));
+focal_fwd(const float* __restrict__ pred, const float* __restrict__ gt,
+          const float* __restrict__ mask, const float* __restrict__ chan,
+          int E, int C, int chunk, double* __restrict__ partial,
+          unsigned* __restrict__ ticket, float* __restrict__ out) {
+  __shared__ float s_chan[FOCAL_MAX_C];
+  __shared__ bool last;
+  for (int c = threadIdx.x; c < C; c += FOCAL_THREADS) s_chan[c] = chan[c];
+  __syncthreads();
+  const int begin = blockIdx.x * chunk;
+  const int end = min(begin + chunk, E);
+  const int per = VEC ? 4 : 1;            // elements a thread takes a pass
+  const int step = per * FOCAL_THREADS;   // elements the block takes a pass
+  const int dpix = step / C, dc = step - dpix * C;
+  int i = begin + per * threadIdx.x;
+  int pix = i / C, c = i - pix * C;
+  double acc[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = 0.0;
+  for (; i < end; i += step) {
+    if (VEC) {
+      float4 pv[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        pv[s] = __ldg(reinterpret_cast<const float4*>(pred + s * E + i));
       const float4 gv = __ldg(reinterpret_cast<const float4*>(gt + i));
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
       const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-      long long pix = i / C;
-      int c = (int)(i - pix * C);
+      int p = pix, cc = c;
+      float mk = __ldg(mask + p);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float m = __ldg(mask + pix) * __ldg(chan + c);
-        acc += (double)focal_term(pa[k], ga[k], m);
-        if (++c == C) {
-          c = 0;
-          ++pix;
+        const float m = mk * s_chan[cc];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float pa[4] = {pv[s].x, pv[s].y, pv[s].z, pv[s].w};
+          acc[s] += (double)focal_term(pa[k], ga[k], m);
+        }
+        if (++cc == C && k < 3) {
+          cc = 0;
+          mk = __ldg(mask + ++p);
         }
       }
+    } else {
+      const float m = __ldg(mask + pix) * s_chan[c];
+      const float g = __ldg(gt + i);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        acc[s] += (double)focal_term(__ldg(pred + s * E + i), g, m);
     }
-  } else {
-    for (long long i = begin + threadIdx.x; i < end; i += FOCAL_THREADS) {
-      const long long pix = i / C;
-      const int c = (int)(i - pix * C);
-      const float m = __ldg(mask + pix) * __ldg(chan + c);
-      acc += (double)focal_term(__ldg(p + i), __ldg(gt + i), m);
+    pix += dpix;
+    c += dc;
+    if (c >= C) {
+      c -= C;
+      ++pix;
     }
   }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partial[(long long)s * chunks + blockIdx.x] = acc;
-}
-
-// (b) out[s] = sum of stack s's partials, in a fixed order.
-__global__ void __launch_bounds__(FOCAL_THREADS)
-focal_fwd_final(const double* __restrict__ partial, int chunks,
-                float* __restrict__ out) {
-  const int s = blockIdx.x;
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < chunks; i += FOCAL_THREADS)
-    acc += partial[(long long)s * chunks + i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) out[s] = (float)acc;
+  block_sums<S>(acc);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) partial[s * gridDim.x + blockIdx.x] = acc[s];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every stack's partials, in index order
+  __threadfence();
+  double tot[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    tot[s] = 0.0;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += FOCAL_THREADS)
+      tot[s] += __ldcg(partial + s * gridDim.x + b);
+  }
+  block_sums<S>(tot);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) out[s] = (float)tot[s];
+    *ticket = 0;
+  }
 }
 
 template <bool VEC>
@@ -165,34 +225,51 @@ static bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0;
 }
 
-// Forward.  pred (S, E) with E = N*H*W*C, gt (E), mask (E / C), chan (C),
-// all contiguous float32; partial holds S * focal_chunks(E) doubles of
-// scratch; out (S).  Returns the cudaError_t of the launches.
-extern "C" int ibp_focal_chunks(long long E) {
-  return (int)((E + FOCAL_CHUNK - 1) / FOCAL_CHUNK);
+// Blocks of a forward call over E elements a stack; the wrapper makes
+// S times as many doubles of partial scratch.
+extern "C" int ibp_focal_fwd_blocks(int E) {
+  return E > 0 ? (E + focal_chunk(E) - 1) / focal_chunk(E) : 0;
 }
 
+template <int S>
+static void launch_fwd(const float* pred, const float* gt, const float* mask,
+                       const float* chan, int E, int C, int chunk,
+                       int blocks, double* partial, unsigned* ticket,
+                       float* out, cudaStream_t st) {
+  if (E % 4 == 0 && aligned16(pred) && aligned16(gt))
+    focal_fwd<S, true><<<blocks, FOCAL_THREADS, 0, st>>>(
+        pred, gt, mask, chan, E, C, chunk, partial, ticket, out);
+  else
+    focal_fwd<S, false><<<blocks, FOCAL_THREADS, 0, st>>>(
+        pred, gt, mask, chan, E, C, chunk, partial, ticket, out);
+}
+
+// Forward, one launch.  pred (S, E) with E = N*H*W*C, gt (E), mask (E / C),
+// chan (C), all contiguous float32; partial holds S * ibp_focal_fwd_blocks(E)
+// doubles of scratch; ticket is one unsigned int, 0 between calls; out
+// (S).  Needs S <= 8, C <= 1024 and S * E < 2^31.  Returns the cudaError_t
+// of the launch.
 extern "C" int ibp_focal_fwd(const float* pred, const float* gt,
                              const float* mask, const float* chan, int S,
-                             long long E, int C, double* partial, float* out,
-                             void* stream) {
-  if (S < 1 || S > 65535 || C < 1 || E % C != 0)
+                             long long E, int C, double* partial,
+                             unsigned* ticket, float* out, void* stream) {
+  if (S < 1 || S > FOCAL_MAX_S || C < 1 || C > FOCAL_MAX_C || E < 0 ||
+      E % C != 0 || (long long)S * E >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int chunks = ibp_focal_chunks(E);
-  if (chunks == 0) {
-    return (int)cudaMemsetAsync(out, 0, S * sizeof(float), st);
+  if (E == 0) return (int)cudaMemsetAsync(out, 0, S * sizeof(float), st);
+  const int e = (int)E, chunk = focal_chunk(e);
+  const int blocks = (e + chunk - 1) / chunk;
+  switch (S) {
+    case 1: launch_fwd<1>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    case 2: launch_fwd<2>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    case 3: launch_fwd<3>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    case 4: launch_fwd<4>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    case 5: launch_fwd<5>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    case 6: launch_fwd<6>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    case 7: launch_fwd<7>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
+    default: launch_fwd<8>(pred, gt, mask, chan, e, C, chunk, blocks, partial, ticket, out, st); break;
   }
-  const dim3 grid(chunks, S);
-  if (E % 4 == 0 && aligned16(pred) && aligned16(gt))
-    focal_fwd_partial<true><<<grid, FOCAL_THREADS, 0, st>>>(
-        pred, gt, mask, chan, E, C, chunks, partial);
-  else
-    focal_fwd_partial<false><<<grid, FOCAL_THREADS, 0, st>>>(
-        pred, gt, mask, chan, E, C, chunks, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  focal_fwd_final<<<S, FOCAL_THREADS, 0, st>>>(partial, chunks, out);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@ import cv2
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import device_tensor, resolve_device
 from ..config import (
     InferenceModelParams,
     InferenceParams,
@@ -128,8 +128,8 @@ class Predictor:
         ``mirrored`` must already be width-unflipped."""
         sk = self.skeleton
         dev = straight.device
-        flip_paf = torch.as_tensor(sk.flip_paf_ord, device=dev)
-        flip_heat = torch.as_tensor(sk.flip_heat_ord, device=dev)
+        flip_paf = device_tensor(tuple(sk.flip_paf_ord), dev)
+        flip_heat = device_tensor(tuple(sk.flip_heat_ord), dev)
         paf = (straight[..., :sk.paf_layers]
                + mirrored[..., :sk.paf_layers][..., flip_paf]) / 2
         heat = (straight[..., sk.heat_start:sk.num_layers]
@@ -213,7 +213,9 @@ class Predictor:
         grouped, each group runs as its binary decomposition (chunks of
         power-of-two size, largest first; no padding lanes), the chunks'
         packed rows are concatenated on the device and ``resolve()``
-        fetches them in one copy and returns results in input order."""
+        fetches them in one copy and returns results in input order.  On a
+        CUDA device the call only enqueues the device work: nothing is
+        read back before ``resolve()``."""
         prm = params or self.params
         if not trivial_grid(prm):
             raise NotImplementedError(
@@ -241,10 +243,9 @@ class Predictor:
         order, bufs = [], []
         for idxs in groups.values():
             for chunk in _pow2_chunks(idxs):
-                batch = torch.from_numpy(
-                    np.stack([prepared[i] for i in chunk])).to(self.device)
-                valid = torch.tensor([sizes[i][2:] for i in chunk],
-                                     dtype=torch.int32, device=self.device)
+                batch = self._upload(np.stack([prepared[i] for i in chunk]))
+                valid = self._upload(np.array([sizes[i][2:] for i in chunk],
+                                              np.int32))
                 maps = self.ensemble_maps(batch)
                 bufs.append(self.decode_maps(maps, valid[:, 0], valid[:, 1],
                                              thre1, spec))
@@ -261,6 +262,16 @@ class Predictor:
             return results
 
         return resolve
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the lane's device.  On a CUDA device the copy
+        goes through pinned memory asynchronously: a blocking copy would
+        make the host wait for the work already queued (an earlier
+        chunk's forward and decode)."""
+        t = torch.from_numpy(array)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     # ------------------------------------------------------------------ #
     def _unpack_compact(self, buf: np.ndarray, k: int, image_size: int,

@@ -12,6 +12,8 @@ matmuls).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -36,12 +38,20 @@ def cubic_weights(in_size: int, out_size: int) -> torch.Tensor:
     return torch.where(inside[None, :], weights, 0.0).T.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _weights_on(in_size: int, out_size: int,
+                device: torch.device) -> torch.Tensor:
+    """:func:`cubic_weights` on ``device``, made once per size and device:
+    a copy at each call would make the host wait for the queued work."""
+    return cubic_weights(in_size, out_size).to(device)
+
+
 def upsample_cubic(maps: torch.Tensor, stride: int) -> torch.Tensor:
     """(N, h, w, C) float32 maps -> (N, h*stride, w*stride, C)."""
     n, h, w, c = maps.shape
     big_h, big_w = h * stride, w * stride
-    wh = cubic_weights(h, big_h).to(maps.device)              # (H, h)
-    ww = cubic_weights(w, big_w).to(maps.device)              # (W, w)
+    wh = _weights_on(h, big_h, maps.device)                   # (H, h)
+    ww = _weights_on(w, big_w, maps.device)                   # (W, w)
     rows = torch.matmul(wh, maps.reshape(n, h, w * c))        # (N, H, w*C)
     out = torch.matmul(ww, rows.reshape(n * big_h, w, c))     # (N*H, W, C)
     return out.reshape(n, big_h, big_w, c)

@@ -4,7 +4,7 @@ training loss.
 The hand-written kernels live in ``csrc/*.cu`` and are bound by
 ``ops.cuda_peaks`` / ``ops.cuda_assembly`` / ``ops.cuda_focal`` (built at
 first use by ``ops._build``)."""
-from .assembly import AssemblyResult, candidate_walk, greedy_assemble
+from .assembly import AssemblyResult, greedy_assemble
 from .losses import focal_l2, l1, l2, multi_task_loss
 from .peaks import (
     LimbCandidates,
@@ -20,7 +20,6 @@ __all__ = [
     "LimbCandidates",
     "PairStats",
     "TopKPeaks",
-    "candidate_walk",
     "focal_l2",
     "greedy_assemble",
     "l1",

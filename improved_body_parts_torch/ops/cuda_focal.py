@@ -2,9 +2,11 @@
 
 ``focal_fwd_kernel`` and ``focal_bwd_kernel`` launch ``csrc/focal.cu``,
 the counterparts of ``improved_body_parts_tpu/ops/pallas_focal.py``
-``focal_l2_pallas`` (forward) and ``_focal_bwd`` (backward).  Each takes
-CUDA tensors only, raises on anything else, and counts its launches in a
-plain int attribute (``focal_fwd_kernel.launches``).
+``focal_l2_pallas`` (forward) and ``_focal_bwd`` (backward); the forward
+is one launch a call.  Each takes CUDA tensors only, raises on anything
+else (and on shapes or sizes the kernel does not take, before the device
+check), and counts its launches in a plain int attribute
+(``focal_fwd_kernel.launches``).
 
 :func:`focal_l2_fused` is the entry point: a per-stack loss with its
 gradient, through :class:`FocalL2Kernel` (both kernels) when ``pred`` lies
@@ -33,6 +35,9 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 
 FG_THRE = 0.01  # gt >= FG_THRE is foreground (compared in float32)
+MAX_STACKS = 8  # FOCAL_MAX_S in csrc/focal.cu
+MAX_CHANNELS = 1024  # FOCAL_MAX_C
+INT32_MAX = 2 ** 31 - 1  # the forward's offsets are 32-bit
 
 
 def _terms(pred, gt, mask, chan):
@@ -63,6 +68,9 @@ def focal_bwd_plain(pred, gt, mask, chan, ct) -> torch.Tensor:
 
 
 def _check(name, pred, gt, mask, chan):
+    if pred.dim() != 5:
+        raise ValueError(f"{name}: pred must be (S, N, H, W, C), got "
+                         f"{tuple(pred.shape)}")
     s, n, h, w, c = pred.shape
     if (tuple(gt.shape) != (n, h, w, c) or tuple(mask.shape) != (n, h, w, 1)
             or tuple(chan.shape) != (c,)):
@@ -75,20 +83,42 @@ def _check(name, pred, gt, mask, chan):
     return s, n * h * w * c, c
 
 
+_tickets = {}
+
+
+def _fwd_ticket(device: torch.device) -> torch.Tensor:
+    """The forward's last-block ticket on ``device``: one int, 0 between
+    calls (each call's last block sets it back)."""
+    t = _tickets.get(device)
+    if t is None:
+        t = _tickets[device] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def focal_fwd_kernel(pred, gt, mask, chan) -> torch.Tensor:
-    """:func:`focal_fwd_plain` on the card: ``csrc/focal.cu``, a
-    deterministic two-pass reduction."""
+    """:func:`focal_fwd_plain` on the card: ``csrc/focal.cu``, one launch
+    that reads gt, mask and chan once for all stacks and sums the blocks'
+    partials in a fixed order (the same bits every run)."""
+    s, e, c = _check("focal_fwd", pred, gt, mask, chan)
+    if not 1 <= s <= MAX_STACKS or c > MAX_CHANNELS:
+        raise ValueError(f"focal_fwd: {s} stacks and {c} channels, the "
+                         f"kernel takes 1..{MAX_STACKS} stacks and at most "
+                         f"{MAX_CHANNELS} channels")
+    if s * e > INT32_MAX:
+        raise ValueError(f"focal_fwd: {s} x {e} prediction elements, past "
+                         "the kernel's 32-bit offsets")
     _require_cuda("focal_fwd", pred, gt, mask, chan)
     pred, gt, mask, chan = (t.contiguous() for t in (pred, gt, mask, chan))
-    s, e, c = _check("focal_fwd", pred, gt, mask, chan)
-    chunks = _build.function("focal", "ibp_focal_chunks", (_LL,))(e)
-    partial = torch.empty(s * max(chunks, 1), dtype=torch.float64,
+    blocks = _build.function("focal", "ibp_focal_fwd_blocks", (_I,))(e)
+    partial = torch.empty(s * max(blocks, 1), dtype=torch.float64,
                           device=pred.device)
     out = torch.empty(s, dtype=torch.float32, device=pred.device)
     fn = _build.function("focal", "ibp_focal_fwd",
-                         (_P, _P, _P, _P, _I, _LL, _I, _P, _P, _P))
+                         (_P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P))
     err = fn(pred.data_ptr(), gt.data_ptr(), mask.data_ptr(),
-             chan.data_ptr(), s, e, c, partial.data_ptr(), out.data_ptr(),
+             chan.data_ptr(), s, e, c, partial.data_ptr(),
+             _fwd_ticket(pred.device).data_ptr(), out.data_ptr(),
              _stream(pred.device))
     _build.check(err, "focal_fwd")
     focal_fwd_kernel.launches += 1
@@ -98,9 +128,9 @@ def focal_fwd_kernel(pred, gt, mask, chan) -> torch.Tensor:
 def focal_bwd_kernel(pred, gt, mask, chan, ct) -> torch.Tensor:
     """:func:`focal_bwd_plain` on the card: ``csrc/focal.cu``, one fused
     elementwise pass."""
+    s, e, c = _check("focal_bwd", pred, gt, mask, chan)
     _require_cuda("focal_bwd", pred, gt, mask, chan, ct)
     pred, gt, mask, chan = (t.contiguous() for t in (pred, gt, mask, chan))
-    s, e, c = _check("focal_bwd", pred, gt, mask, chan)
     ct = ct.to(torch.float32).contiguous()
     if tuple(ct.shape) != (s,):
         raise ValueError(f"focal_bwd: ct must be ({s},), got "

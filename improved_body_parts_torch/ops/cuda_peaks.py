@@ -17,12 +17,12 @@ attribute (``topk_peaks_kernel.launches``).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .. import device_tensor
 from . import _build
 
 NEG = -1e9  # the masked value of topk_peaks (the JAX package's _NEG)
@@ -48,15 +48,6 @@ def _check_offsets(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: a {tuple(t.shape)} view with strides "
                          f"{t.stride()} reaches element offset {last}, past "
                          "the kernel's 32-bit offsets")
-
-
-@functools.lru_cache(maxsize=None)
-def _limb_channels(limbs_from: Tuple[int, ...], limbs_to: Tuple[int, ...],
-                   device: torch.device) -> torch.Tensor:
-    """The limbs' endpoint channels on ``device``, "from" then "to" (int32,
-    made once per device and skeleton)."""
-    return torch.tensor(limbs_from + limbs_to, device=device,
-                        dtype=torch.int32)
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -289,7 +280,7 @@ def limb_pair_stats_kernel(paf: torch.Tensor, x_ref: torch.Tensor,
     dev = paf.device
     xr = x_ref.to(torch.float32).contiguous()
     yr = y_ref.to(torch.float32).contiguous()
-    limbs = _limb_channels(la, lb, dev)
+    limbs = device_tensor(la + lb, dev, torch.int32)
     shape = (n, n_limbs, k, k)
     mean = torch.empty(shape, device=dev, dtype=torch.float32)
     norm = torch.empty(shape, device=dev, dtype=torch.float32)

@@ -19,7 +19,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from .. import use_kernel
+from .. import device_tensor, use_kernel
 from . import cuda_peaks
 
 
@@ -107,8 +107,8 @@ def limb_topk_from_stats(st: PairStats, peaks: TopKPeaks,
         length-prior scale)
     """
     dev = st.norm.device
-    la = torch.as_tensor(limbs_from, device=dev)
-    lb = torch.as_tensor(limbs_to, device=dev)
+    la = device_tensor(tuple(map(int, limbs_from)), dev)
+    lb = device_tensor(tuple(map(int, limbs_to)), dev)
     n, n_limbs, k, _ = st.norm.shape
     size_f = image_size.to(device=dev, dtype=st.norm.dtype).view(n, 1, 1, 1)
     prior = st.mean_score + torch.clamp(

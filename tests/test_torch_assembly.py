@@ -1,6 +1,6 @@
 """Port parity: the candidate walk and greedy assembly (``ops.assembly``).
 
-The walk's plain version (what the port runs on the CPU) must equal the
+The walk of the plain assembly (``candidate_walk_plain``) must equal the
 JAX package's host reference walk and its Pallas kernel in interpreter
 mode exactly, on randomized prefix-valid candidate sets drawn as
 ``ops/pallas_assembly.py`` ``walk_parity_benchmark`` draws them.
@@ -8,7 +8,12 @@ mode exactly, on randomized prefix-valid candidate sets drawn as
 ``greedy_assemble`` is held to the JAX package's on the
 ``tests/test_assembly.py`` random-record fixtures, batched: person table,
 prune mask and flags within 1e-4 (both sides accumulate in fp32 in the
-same order; the tolerance is the one that suite documents).
+same order; the tolerance is the one that suite documents).  So is
+``greedy_assemble_plain`` at the serve lane's sizes (K = 64, M = 128, 30
+limbs, p_max 32 and 1), the reference ``chip_smoke.py`` holds the fused
+kernel (``csrc/assembly.cu``) to on the card.  The kernel's wrapper is
+checked here only for what it refuses: CPU tensors, sizes past its
+limits and inputs whose shapes do not match.
 """
 import sys
 
@@ -21,6 +26,7 @@ from improved_body_parts_tpu.ops.pallas_assembly import (
     candidate_walk_reference,
 )
 from improved_body_parts_torch.ops import assembly as tasm
+from improved_body_parts_torch.ops import cuda_assembly as tcasm
 from improved_body_parts_torch.ops import peaks as tpeaks
 
 sys.path.insert(0, "tests")
@@ -42,7 +48,7 @@ def _walk_fixture(rng, n_limbs, m_cap, k):
 def test_candidate_walk_matches_reference_and_pallas(n_limbs, m_cap, k):
     rng = np.random.default_rng(0)
     batch = [_walk_fixture(rng, n_limbs, m_cap, k) for _ in range(3)]
-    got = tasm.candidate_walk(
+    got = tcasm.candidate_walk_plain(
         *[torch.from_numpy(np.stack(f)) for f in zip(*batch)], k).numpy()
     assert got.dtype == np.int32 and got.shape == (3, n_limbs, m_cap)
     for i, fixture in enumerate(batch):
@@ -125,3 +131,134 @@ def test_greedy_assemble_overflow_flags():
     assert not person_of.any()
     mask, _, _, _, person_of = _assert_same_tables(records, 1, PARAMS)[1:]
     assert mask.sum(axis=1).max() <= 1 and person_of.any()
+
+
+def _lane_records(rng, k=64, m=128):
+    """Random records at the serve lane's sizes, drawn as ``_rand_records``
+    draws them (candidates point only at valid peaks, rank-descending,
+    prefix-valid) but dense: every channel keeps 40..64 of its 64 slots,
+    and a limb's candidates fill all M slots in about half the limbs."""
+    from improved_body_parts_tpu.ops.peaks import LimbCandidates, TopKPeaks
+
+    c, n_limbs = SK.num_parts, len(SK.limbs_conn)
+    counts = rng.integers(40, k + 1, c).astype(np.int32)
+    valid = np.zeros((c, k), bool)
+    for ch in range(c):
+        valid[ch, rng.permutation(k)[:counts[ch]]] = True
+    flat = np.stack([rng.permutation(400 * 400)[:k] for _ in range(c)])
+    xs, ys = (flat % 400).astype(np.int32), (flat // 400).astype(np.int32)
+    x_ref = (xs + rng.uniform(-.4, .4, (c, k))).astype(np.float32)
+    y_ref = (ys + rng.uniform(-.4, .4, (c, k))).astype(np.float32)
+    score = rng.uniform(0.1, 1.0, (c, k)).astype(np.float32)
+    pk = TopKPeaks(xs, ys, x_ref, y_ref, score, valid, counts)
+    slot_a, slot_b = (np.zeros((n_limbs, m), np.int32) for _ in range(2))
+    prior, norm = (np.zeros((n_limbs, m), np.float32) for _ in range(2))
+    cvalid = np.zeros((n_limbs, m), bool)
+    ccount = np.zeros((n_limbs,), np.int32)
+    for li, (ia, ib) in enumerate(SK.limbs_conn):
+        pairs = [(a, b) for a in np.nonzero(valid[ia])[0]
+                 for b in np.nonzero(valid[ib])[0]]
+        rng.shuffle(pairs)
+        n = m if rng.uniform() < 0.5 else int(rng.integers(0, m + 1))
+        pr = np.sort(rng.uniform(0.05, 2.0, n).astype(np.float32))[::-1]
+        for i, (a, b) in enumerate(pairs[:n]):
+            slot_a[li, i], slot_b[li, i] = a, b
+            prior[li, i] = pr[i]
+            norm[li, i] = np.float32(np.hypot(
+                x_ref[ia, a] - x_ref[ib, b], y_ref[ia, a] - y_ref[ib, b]))
+        cvalid[li, :n] = True
+        ccount[li] = len(pairs)
+    return pk, LimbCandidates(slot_a, slot_b, prior, norm, cvalid, ccount)
+
+
+@pytest.mark.parametrize("p_max", [32, 1])
+def test_greedy_assemble_plain_matches_jax_at_lane_sizes(p_max):
+    """The plain version, which the fused kernel is held to on the card,
+    equals the JAX package's greedy_assemble at the serve lane's sizes;
+    p_max 1 fills the table and sets person_overflow."""
+    rng = np.random.default_rng(7)
+    records = [_lane_records(rng) for _ in range(2)]
+    assert all(cd.valid.all(axis=1).any() for _, cd in records)
+    got = _assert_same_tables(records, p_max, PARAMS)
+    assert got[1].any()
+    if p_max == 1:
+        assert got[5].all()
+
+
+def test_greedy_assemble_routes_cpu_tensors_to_the_plain_version(
+        monkeypatch):
+    """On CPU tensors the public op runs greedy_assemble_plain and never
+    reaches the kernel's wrapper."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel wrapper was called")
+
+    monkeypatch.setattr(tasm, "greedy_assemble_kernel", refuse)
+    rng = np.random.default_rng(3)
+    records = [_rand_records(rng) for _ in range(2)]
+    got = _port_assemble(records, 16, PARAMS)
+    pk = tpeaks.TopKPeaks(*[torch.from_numpy(np.stack(f))
+                            for f in zip(*[r[0] for r in records])])
+    cd = tpeaks.LimbCandidates(*[torch.from_numpy(np.stack(f))
+                                 for f in zip(*[r[1] for r in records])])
+    want = tcasm.greedy_assemble_plain(
+        pk, cd, limbs_from=LIMBS_FROM, limbs_to=LIMBS_TO,
+        num_parts=SK.num_parts, p_max=16, len_rate=PARAMS.len_rate,
+        connection_tole=PARAMS.connection_tole,
+        remove_recon=PARAMS.remove_recon, min_parts=PARAMS.min_parts,
+        min_mean_score=PARAMS.min_mean_score)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def _meta_inputs(n=2, c=18, k=64, n_limbs=30, m=128, **bad):
+    """Meta-device peaks and candidates of the given sizes (no memory);
+    ``bad`` replaces one field's shape."""
+    def t(shape, dtype):
+        return torch.empty(shape, device="meta", dtype=dtype)
+
+    pk_shapes = dict(score=(n, c, k), count=(n, c))
+    cd_shapes = dict(slot_a=(n, n_limbs, m), slot_b=(n, n_limbs, m),
+                     prior=(n, n_limbs, m), norm=(n, n_limbs, m),
+                     valid=(n, n_limbs, m), ccount=(n, n_limbs))
+    pk_shapes.update({f: s for f, s in bad.items() if f in pk_shapes})
+    cd_shapes.update({f: s for f, s in bad.items() if f in cd_shapes})
+    i32, f32 = torch.int32, torch.float32
+    pk = tpeaks.TopKPeaks(t((n, c, k), i32), t((n, c, k), i32),
+                          t((n, c, k), f32), t((n, c, k), f32),
+                          t(pk_shapes["score"], f32), t((n, c, k), torch.bool),
+                          t(pk_shapes["count"], i32))
+    cd = tpeaks.LimbCandidates(
+        t(cd_shapes["slot_a"], i32), t(cd_shapes["slot_b"], i32),
+        t(cd_shapes["prior"], f32), t(cd_shapes["norm"], f32),
+        t(cd_shapes["valid"], torch.bool), t(cd_shapes["ccount"], i32))
+    return pk, cd
+
+
+@pytest.mark.parametrize("sizes,kw,match", [
+    (dict(), dict(p_max=129), "limits"),
+    (dict(), dict(num_parts=33), "limits"),
+    (dict(k=1025), dict(), "limits"),
+    (dict(m=1025), dict(), "limits"),
+    (dict(m=1024), dict(), "shared memory"),
+    (dict(slot_b=(2, 30, 64)), dict(), "slot_b"),
+    (dict(ccount=(2, 29)), dict(), "count"),
+    (dict(count=(2, 17)), dict(), "count"),
+    (dict(n_limbs=29), dict(), "one \\(from, to\\) pair"),
+])
+def test_greedy_assemble_kernel_refuses_what_it_cannot_take(sizes, kw,
+                                                            match):
+    """The wrapper raises before any launch on sizes past the kernel's
+    limits (p_max 128, 32 parts, K and M 1024, 227 KB of shared memory an
+    image) and on inputs whose shapes do not match; the serve lane's own
+    sizes pass these checks and stop only at the device check."""
+    base = dict(limbs_from=LIMBS_FROM, limbs_to=LIMBS_TO,
+                num_parts=SK.num_parts, p_max=32, len_rate=PARAMS.len_rate,
+                connection_tole=PARAMS.connection_tole,
+                remove_recon=PARAMS.remove_recon, min_parts=PARAMS.min_parts,
+                min_mean_score=PARAMS.min_mean_score)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcasm.greedy_assemble_kernel(*_meta_inputs(), **base)
+    with pytest.raises(ValueError, match=match):
+        tcasm.greedy_assemble_kernel(*_meta_inputs(**sizes),
+                                     **dict(base, **kw))
+    assert tcasm.greedy_assemble_kernel.launches == 0

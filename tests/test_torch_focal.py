@@ -125,3 +125,61 @@ def test_empty_mask_gives_zero():
     loss.sum().backward()
     assert not p.grad.any()
     assert torch.equal(focal_fwd_plain(p.detach(), g, m, c), torch.zeros(2))
+
+
+def test_focal_kernel_wrappers_refuse_cpu_tensors():
+    """On CPU tensors the loss runs the plain versions; the kernel wrappers
+    themselves take CUDA tensors only (no silent fallback)."""
+    from improved_body_parts_torch.ops import cuda_focal
+
+    pred, gt, mask, chan = _torch(*_case(0))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_focal.focal_fwd_kernel(pred, gt, mask, chan)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_focal.focal_bwd_kernel(pred, gt, mask, chan, torch.ones(2))
+    assert cuda_focal.focal_fwd_kernel.launches == 0
+    assert cuda_focal.focal_bwd_kernel.launches == 0
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(gt=(2, 8, 8, 11)), "expected gt"),
+    (dict(mask=(2, 8, 8, 12)), "expected gt"),
+    (dict(chan=(11,)), "expected gt"),
+    (dict(pred=(2, 8, 8, 12)), "pred must be"),
+    (dict(dtype=torch.float64), "float32"),
+    (dict(pred=(9, 2, 8, 8, 12)), "1..8 stacks"),
+    (dict(pred=(2, 2, 8, 8, 1025), gt=(2, 8, 8, 1025), chan=(1025,)),
+     "at most 1024 channels"),
+])
+def test_focal_fwd_kernel_checks_arguments(change, match):
+    """The forward wrapper refuses mismatched shapes, other dtypes, more
+    stacks or channels than the kernel takes, before any launch (meta
+    tensors: only shapes are read)."""
+    from improved_body_parts_torch.ops import cuda_focal
+
+    shapes = dict(pred=(2, 2, 8, 8, 12), gt=(2, 8, 8, 12), mask=(2, 8, 8, 1),
+                  chan=(12,))
+    dtype = change.pop("dtype", torch.float32)
+    shapes.update(change)
+    args = [torch.empty(shapes[k], device="meta", dtype=dtype)
+            for k in ("pred", "gt", "mask", "chan")]
+    with pytest.raises(ValueError, match=match):
+        cuda_focal.focal_fwd_kernel(*args)
+    assert cuda_focal.focal_fwd_kernel.launches == 0
+
+
+def test_focal_fwd_kernel_checks_32bit_offsets():
+    """The forward addresses the S stacks with 32-bit offsets: S * E past
+    2^31 is refused before any launch (meta tensors, no memory); the
+    canonical 128^2 scale fits and stops only at the device check."""
+    from improved_body_parts_torch.ops import cuda_focal
+
+    def meta(s, n, hw, c):
+        return [torch.empty(shape, device="meta") for shape in (
+            (s, n, hw, hw, c), (n, hw, hw, c), (n, hw, hw, 1), (c,))]
+
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_focal.focal_fwd_kernel(*meta(4, 4, 128, 50))
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_focal.focal_fwd_kernel(*meta(4, 4, 2048, 50))
+    assert cuda_focal.focal_fwd_kernel.launches == 0

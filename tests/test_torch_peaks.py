@@ -213,10 +213,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_peaks.limb_pair_stats_kernel(
             heat, torch.zeros((1, 2, 2)), torch.zeros((1, 2, 2)),
             limbs_from=(0, 1), limbs_to=(1, 0), num_samples=4, thre2=0.1)
-    z = torch.zeros((1, 4), dtype=torch.int32)
+    n, c, k, n_limbs, m = 1, 2, 4, 1, 8
+    pk = tpeaks.TopKPeaks(*[torch.zeros((n, c, k), dtype=dt) for dt in (
+        torch.int32, torch.int32, torch.float32, torch.float32,
+        torch.float32, torch.bool)], torch.zeros((n, c), dtype=torch.int32))
+    cd = tpeaks.LimbCandidates(
+        *[torch.zeros((n, n_limbs, m), dtype=dt) for dt in (
+            torch.int32, torch.int32, torch.float32, torch.float32,
+            torch.bool)], torch.zeros((n, n_limbs), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_assembly.candidate_walk_kernel(z, z, z, torch.zeros(1), 4)
+        cuda_assembly.greedy_assemble_kernel(
+            pk, cd, limbs_from=(0,), limbs_to=(1,), num_parts=c, p_max=4,
+            len_rate=16.0, connection_tole=0.7, remove_recon=0, min_parts=2,
+            min_mean_score=0.2)
     assert cuda_peaks.topk_peaks_kernel.launches == 0
+    assert cuda_assembly.greedy_assemble_kernel.launches == 0
 
 
 @pytest.mark.parametrize("shape", [(8, 640, 896, 50), (1, 2, 3, 4)])
