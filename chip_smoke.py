@@ -18,7 +18,10 @@ failed phase ends the run with a non-zero exit code:
    block's buffer) and gives limb_pair_stats segments of all 20 samples,
    and at the sizes the lane does not compile for (17 channels, radius 1,
    12 samples): integer outputs exactly, topk_peaks' and limb_pair_stats'
-   floats bit for bit.  The fused greedy assembly on the lane's planted
+   floats bit for bit.  All three decode kernels again, bit for bit, at
+   the batcher's other shapes on planted people: batch 1 of 640x896 and
+   of 640x512 (its singleton flushes of either bucket) and batch 8 of
+   640x512.  The fused greedy assembly on the lane's planted
    peaks and candidates and on random dense records (K=64, M=128, 30
    limbs), at p_max 32, 1 (a full table) and 64 and with remove_recon 1:
    every field bit for bit, with the longest chain's walk steps and
@@ -42,6 +45,26 @@ failed phase ends the run with a non-zero exit code:
    must return with its device work still queued (an event recorded as
    it returns has not completed): no read back to the host before
    ``resolve()``;
+
+Between phases 5 and 6, the batcher (``serve.DynamicBatcher``, the
+entry point users serve through): on phase 4's planted maps, 12
+requests from 3 client threads over two buckets through the fused lane
+(every planted person within 1 px, ``decode_fused`` 12, every decode
+kernel launched), then each fallback level forced: a 2-person table
+under 3 people (host ``decode_compact`` of the compact records, with the
+native decoder) and top-K 2 (``predict_fast``'s full maps); then at full
+width on phase 5's ``canonical`` model: warmup of the 640x896 and
+640x512 buckets, 64 requests from 4 threads (max_batch 8, max_wait_ms
+25, max_queue 64) with the decode kernels' counters set to 0 just before
+and read just after (each must have launched), 0 failed or rejected,
+a request record (``obs.reqtrace``, every request sampled) with the five
+hops for each request, and the hops of all requests summing to their
+e2e latencies within 1 us; it prints imgs/s, p50/p99 e2e, mean
+occupancy, each hop's p50 and the dispatcher's host ms per batch; then
+8 requests through the host-pool lane (``device_decode=False``).  What
+the batcher's threads left on the card (their cuBLAS workspaces) is
+released before phase 6, so phase 6's peak memory is its own;
+
 6. training at full width: ``canonical`` in train mode from a seeded init,
    bf16 autocast, SGD; drawn synthetic people through the port's
    ``Transformer`` + ``Heatmapper`` (augmented, 512x512, batch 4, uint8
@@ -50,7 +73,9 @@ failed phase ends the run with a non-zero exit code:
    and read just after (5 launches a step each).  Losses finite, params
    and BN running stats moved, every step counted.
 
-Then one JSON line with every kernel's numbers, the ``nvidia-smi`` line
+Then one JSON line with every kernel's numbers (a decode kernel's
+``launches`` are the batcher's full-width run, with phase 5's beside
+them in ``launches_by_path``), the ``nvidia-smi`` line
 again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
 no result.  Every number it prints is measured on the card in this run.
@@ -78,6 +103,11 @@ PEAKS_PASSES = ("peaks_nms_kernel", "peaks_select_kernel")
 LIMBS_PASSES = ("limb_pair_stats_kernel",)
 ASSEMBLY_PASSES = ("greedy_assemble_kernel",)
 P_MAX = 32                                  # the lane's person table
+# the batcher's other decode shapes: (batch, bucket height, bucket width,
+# valid width of a 480x640 or a 640x480 image) -- singleton flushes of
+# either bucket and a full batch of the narrow one
+BUCKET_SHAPES = ((1, HEIGHT, WIDTH, 853), (1, HEIGHT, 512, 480),
+                 (BATCH, HEIGHT, 512, 480))
 FOCAL_FWD_PASSES = ("focal_fwd",)
 FOCAL_BWD_PASSES = ("focal_bwd",)
 
@@ -227,6 +257,25 @@ class MirrorStub:
         mirror = m.flip(1)[..., self.perm]
         half = n // 2
         return [[torch.stack([m] * half + [mirror] * half)]]
+
+
+def planted_error(sk, people, planted, label: str) -> float:
+    """Largest keypoint error in px of the decoded ``people`` (a list of
+    (COCO keypoints, score)) against the ``planted`` joints, each planted
+    person matched to its nearest decoded one; fails unless every person
+    decodes, each keypoint within 1 px."""
+    check(len(people) == len(planted), f"{label}: decoded {len(people)} "
+          f"people, planted {len(planted)}")
+    worst = 0.0
+    for joints in planted:
+        want = {gt: joints[dt] for dt, gt in sk.dt_gt_mapping.items()
+                if gt is not None}
+        errs = [max(np.hypot(kps[gt][0] - xy[0], kps[gt][1] - xy[1])
+                    for gt, xy in want.items())
+                for kps, _ in people]
+        worst = max(worst, min(errs))
+    check(worst <= 1.0, f"{label}: planted keypoints off by {worst:.3f} px")
+    return worst
 
 
 def compare(name, got, want, int_fields, tol=FLOAT_TOL):
@@ -418,6 +467,80 @@ def chain_length(peaks, cands, limbs_from, limbs_to):
     return int(steps[i]), int(taken[i]), int(steps.sum()), int(taken.sum())
 
 
+def assembly_args(sk, params) -> dict:
+    """The serve lane's keyword arguments of ``greedy_assemble``."""
+    return dict(limbs_from=tuple(a for a, _ in sk.limbs_conn),
+                limbs_to=tuple(b for _, b in sk.limbs_conn),
+                num_parts=sk.num_parts, p_max=P_MAX,
+                len_rate=params.len_rate,
+                connection_tole=params.connection_tole,
+                remove_recon=params.remove_recon,
+                min_parts=params.min_parts,
+                min_mean_score=params.min_mean_score)
+
+
+def bucket_cases(sk, dev, params, kw_pk, kw_st, smi):
+    """Phase 3's decode kernels at the batcher's other shapes
+    (``BUCKET_SHAPES``), each on planted people plus noise as at the
+    lane's batch of 8 (seeded apart, so the later phases draw as
+    before): ``topk_peaks`` and ``limb_pair_stats`` against their plain
+    versions, then ``greedy_assemble`` on the candidates ranked from
+    those records; integers exactly, floats bit for bit."""
+    import torch
+
+    from improved_body_parts_torch.infer.resize import upsample_cubic
+    from improved_body_parts_torch.ops import cuda_assembly, cuda_peaks
+    from improved_body_parts_torch.ops.peaks import (
+        PairStats,
+        TopKPeaks,
+        limb_topk_from_stats,
+    )
+
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kw_asm = assembly_args(sk, params)
+    for n, h, w, valid in BUCKET_SHAPES:
+        grid = torch.stack([planted_grid_maps(
+            sk, [person_joints(sk, x0, rng.uniform(20, 120),
+                               rng.uniform(260, 480))
+                 for x0 in rng.uniform(0, valid - 260, 3)],
+            h // 4, w // 4, dev) for _ in range(n)])
+        grid = grid + 0.01 * torch.randn(grid.shape, device=dev,
+                                         generator=gen)
+        maps = upsample_cubic(grid, sk.stride)
+        kp = maps[..., sk.heat_start:sk.heat_start + sk.num_parts]
+        paf = maps[..., :sk.paf_layers]
+        valid_h = torch.full((n,), h, dtype=torch.int32, device=dev)
+        valid_w = torch.full((n,), valid, dtype=torch.int32, device=dev)
+        label = f"batch {n}, {h}x{w}, valid width {valid}"
+        pk = cuda_peaks.topk_peaks_plain(kp, valid_h, valid_w, **kw_pk)
+        got = cuda_peaks.topk_peaks_kernel(kp, valid_h, valid_w, **kw_pk)
+        torch.cuda.synchronize()
+        compare(f"topk_peaks ({label})", got, pk, {0, 1, 5, 6}, tol=0.0)
+        st = cuda_peaks.limb_pair_stats_plain(paf, pk[2], pk[3], **kw_st)
+        got = cuda_peaks.limb_pair_stats_kernel(paf, pk[2], pk[3], **kw_st)
+        torch.cuda.synchronize()
+        compare(f"limb_pair_stats ({label})", got, st, {1, 2}, tol=0.0)
+        peaks = TopKPeaks(*pk)
+        cands = limb_topk_from_stats(
+            PairStats(*st), peaks, valid_h, limbs_from=kw_asm["limbs_from"],
+            limbs_to=kw_asm["limbs_to"],
+            connect_ration=params.connect_ration, m_cap=2 * TOPK)
+        want = cuda_assembly.greedy_assemble_plain(peaks, cands, **kw_asm)
+        got = cuda_assembly.greedy_assemble_kernel(peaks, cands, **kw_asm)
+        torch.cuda.synchronize()
+        compare(f"greedy_assemble ({label})", got, want, {1, 2, 3, 4, 5},
+                tol=0.0)
+        people = int(want[2].sum())
+        check(people > 0, f"greedy_assemble ({label}): no person assembled")
+        print(f"[3 kernels] batcher shape {label}: "
+              f"{int(torch.clamp(pk[6], max=TOPK).sum())} kept peaks, "
+              f"{int(st[2].sum())} limb samples, "
+              f"{int(cands.valid.sum())} accepted candidates, {people} "
+              "people; topk_peaks, limb_pair_stats and greedy_assemble "
+              f"equal to their plain versions bit for bit [{smi}]")
+
+
 def assembly_cases(sk, dev, params, peaks, cands, rng, smi):
     """Phase 3 for the fused assembly: ``greedy_assemble_kernel`` against
     ``greedy_assemble_plain`` on the card, every ``AssemblyResult`` field
@@ -432,15 +555,8 @@ def assembly_cases(sk, dev, params, peaks, cands, rng, smi):
 
     from improved_body_parts_torch.ops import cuda_assembly
 
-    limbs_from = tuple(a for a, _ in sk.limbs_conn)
-    limbs_to = tuple(b for _, b in sk.limbs_conn)
-    base = dict(limbs_from=limbs_from, limbs_to=limbs_to,
-                num_parts=sk.num_parts, p_max=P_MAX,
-                len_rate=params.len_rate,
-                connection_tole=params.connection_tole,
-                remove_recon=params.remove_recon,
-                min_parts=params.min_parts,
-                min_mean_score=params.min_mean_score)
+    base = assembly_args(sk, params)
+    limbs_from, limbs_to = base["limbs_from"], base["limbs_to"]
     rand = random_records(sk, dev, rng, limbs_from, limbs_to)
     cases = [("planted", peaks, cands, {}),
              ("random dense", *rand, {}),
@@ -797,6 +913,264 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+DECODE_KERNELS = ("topk_peaks", "limb_pair_stats", "greedy_assemble")
+
+
+def decode_kernel_wrappers():
+    """{name: wrapper} of the serve lane's three decode kernels."""
+    from improved_body_parts_torch.ops import cuda_assembly, cuda_peaks
+
+    return {"topk_peaks": cuda_peaks.topk_peaks_kernel,
+            "limb_pair_stats": cuda_peaks.limb_pair_stats_kernel,
+            "greedy_assemble": cuda_assembly.greedy_assemble_kernel}
+
+
+def reset_launches() -> None:
+    for fn in decode_kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in decode_kernel_wrappers().items()}
+
+
+class TimedDispatch:
+    """Stands in for a predictor in front of a ``DynamicBatcher``'s fused
+    lane: every call is the predictor's own, and the host time of each
+    dispatch (what the dispatcher thread spends on a batch: preprocessing,
+    upload and the launches) is kept in ``ms``, its (bucket, size) in
+    ``batches``; ``fast`` counts full-map fallbacks."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.ms = []
+        self.batches = []       # (bucket shape, batch size) of each dispatch
+        self.fast = 0
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _timed(self, dispatch, images):
+        t0 = time.perf_counter()
+        out = dispatch()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.batches.append((self._inner.compact_lane_shape(images[0]),
+                             len(images)))
+        return out
+
+    def predict_decoded_async(self, image, **kw):
+        return self._timed(
+            lambda: self._inner.predict_decoded_async(image, **kw), [image])
+
+    def predict_decoded_batch_async(self, images, **kw):
+        return self._timed(
+            lambda: self._inner.predict_decoded_batch_async(images, **kw),
+            images)
+
+    def predict_fast_async(self, *a, **kw):
+        self.fast += 1
+        return self._inner.predict_fast_async(*a, **kw)
+
+
+def drive(server, images, clients: int):
+    """Send ``images`` from ``clients`` threads (image i from thread
+    i % clients, each thread submitting its share back to back) and wait
+    for every result; returns the results in image order."""
+    import threading
+
+    futures = [None] * len(images)
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(c, len(images), clients):
+                futures[i] = server.submit(images[i])
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "batcher: a client thread hung")
+    check(not errors, f"batcher: submit raised {errors[:1]}")
+    return [f.result(timeout=600) for f in futures]
+
+
+def check_conservation(metrics, rec, label: str) -> float:
+    """The hop waterfall of a run: the request recorder ``rec`` (an
+    ``obs.reqtrace.ReqTrace`` installed for the run, every request
+    sampled) holds a record of each completed request with the five hops
+    in order, none negative, and the hops of all requests sum to their
+    e2e latencies (``metrics``' exact sums) within 1 us; returns that
+    gap in us."""
+    from improved_body_parts_torch.serve import HOPS
+
+    records = rec.records()
+    check(len(records) == metrics.completed,
+          f"{label}: {len(records)} request records for "
+          f"{metrics.completed} completed requests")
+    for r in records:
+        hops = r["nodes"][0]["hops_ms"]
+        check(tuple(hops) == HOPS and min(hops.values()) >= 0,
+              f"{label}: malformed hops {hops}")
+    gap = abs(sum(m.sum for m in metrics.hops.values())
+              - metrics.latency.sum) * 1e6
+    check(gap <= 1.0, f"{label}: the hops miss e2e by {gap:.3f} us")
+    return gap
+
+
+def planted_batcher(sk, stub_maps, planted, smi):
+    """The batcher phase on phase 4's planted maps: 12 requests from 3
+    client threads over two buckets through the fused lane, then each
+    fallback level forced: a 2-person table under 3 people (the host
+    decode of the compact records, native), and top-K 2 under 3 people
+    (the full maps of ``predict_fast``)."""
+    from improved_body_parts_torch.config import InferenceModelParams
+    from improved_body_parts_torch.infer import Predictor, native
+    from improved_body_parts_torch.serve import DynamicBatcher
+
+    check(native.native_available(), "batcher: the native decoder did not "
+          "build (g++ on native/decoder.cpp)")
+    requests = [np.zeros((HEIGHT, w, 3), np.uint8)
+                for w in (WIDTH, 640) * 6]
+    cases = (("fused", {}, 12, 3),
+             ("host compact decode", dict(assembly_pmax=2), 4, 2),
+             ("full maps", dict(compact_topk=2), 4, 2))
+    for label, kw, n, clients in cases:
+        pred = TimedDispatch(Predictor(
+            MirrorStub(sk, stub_maps), sk,
+            model_params=InferenceModelParams(boxsize=HEIGHT),
+            device=stub_maps.device, **kw))
+        with DynamicBatcher(pred, max_batch=4, max_wait_ms=25,
+                            max_queue=64) as server:
+            server.warmup([(HEIGHT, WIDTH), (HEIGHT, 640)])
+            pred.fast = 0
+            reset_launches()
+            results = drive(server, requests[:n], clients)
+            launches = read_launches()
+            snap = server.metrics.snapshot()
+        worst = max(planted_error(sk, people, planted,
+                                  f"batcher {label}, request {i}")
+                    for i, people in enumerate(results))
+        check(snap["completed"] == n and snap["failed"] == 0
+              and snap["rejected"] == 0,
+              f"batcher {label}: {snap['completed']} of {n} completed, "
+              f"{snap['failed']} failed, {snap['rejected']} rejected")
+        fused = snap["decode_fused"]
+        fallback = snap["decode_host_fallback"]
+        if label == "fused":
+            check(fused == n and fallback == 0 and pred.fast == 0,
+                  f"batcher fused: decode_fused {fused}, fallback "
+                  f"{fallback}, full-map runs {pred.fast}")
+            for k, v in launches.items():
+                check(v > 0, f"batcher fused: {k} never launched")
+        else:
+            full_maps = label == "full maps"
+            check(fused == 0 and fallback == n
+                  and pred.fast == (n if full_maps else 0),
+                  f"batcher {label}: decode_fused {fused}, fallback "
+                  f"{fallback}, full-map runs {pred.fast}")
+        print(f"[batcher planted] {label}: {n} requests from {clients} "
+              f"threads over buckets {snap['occupancy_histogram']} "
+              f"(occupancy histogram), decode_fused {fused}, "
+              f"decode_host_fallback {fallback}, full-map runs {pred.fast}, "
+              f"{len(planted)} people each within {worst:.3f} px; "
+              f"launches {launches} [{smi}]")
+
+
+def full_width_batcher(pred, rng, smi):
+    """The batcher phase at full width on phase 5's ``canonical``
+    predictor: warm two buckets, then 64 requests from 4 client threads
+    (max_batch 8, max_wait_ms 25, max_queue 64) through the fused lane,
+    with the decode kernels' counters set to 0 just before and read just
+    after, and a request recorder installed; then 8 requests through the
+    host-pool lane.  Returns the counters."""
+    from improved_body_parts_torch.obs import reqtrace
+    from improved_body_parts_torch.serve import HOPS, DynamicBatcher
+
+    sizes = [(480, 640), (640, 480)]
+    images = [rng.integers(0, 256, (*sizes[i % 2], 3), dtype=np.uint8)
+              for i in range(64)]
+    timed = TimedDispatch(pred)
+    rec = reqtrace.ReqTrace(sample=1, emit_to_sink=False)
+    with DynamicBatcher(timed, max_batch=8, max_wait_ms=25,
+                        max_queue=64) as server:
+        t0 = time.perf_counter()
+        info = server.warmup(sizes)
+        print(f"[batcher full width] warmup of buckets "
+              f"{info['bucket_shapes']} at batch sizes "
+              f"{info['batch_sizes']}: {info['newly_compiled']} newly "
+              f"warmed, {time.perf_counter() - t0:.2f} s")
+        timed.ms.clear()
+        timed.batches.clear()
+        prev = reqtrace.set_reqtrace(rec)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            results = drive(server, images, clients=4)
+            wall_s = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            reqtrace.set_reqtrace(prev)
+        snap = server.metrics.snapshot()
+        gap = check_conservation(server.metrics, rec, "batcher full width")
+    check(len(results) == 64 and all(isinstance(r, list) for r in results),
+          "batcher full width: malformed results")
+    check(snap["completed"] == 64 and snap["failed"] == 0
+          and snap["rejected"] == 0,
+          f"batcher full width: {snap['completed']} of 64 completed, "
+          f"{snap['failed']} failed, {snap['rejected']} rejected")
+    for k, v in launches.items():
+        check(v > 0, f"batcher full width: {k} never launched")
+    host = sorted(timed.ms)
+    lat, hops = snap["latency_ms"], snap["hops_ms"]
+    print(f"[batcher full width] 64 requests from 4 threads: "
+          f"{snap['imgs_per_sec']:.2f} imgs/s (first submit to last "
+          f"completion), {64 / wall_s:.2f} imgs/s (host clock around the "
+          f"run), e2e p50 {lat['p50']:.2f} ms, p99 {lat['p99']:.2f} ms, "
+          f"mean occupancy {snap['mean_batch_occupancy']:.3f} "
+          f"{snap['occupancy_histogram']}, decode_fused "
+          f"{snap['decode_fused']}, fallback "
+          f"{snap['decode_host_fallback']} [{smi}]")
+    print("[batcher full width] hop p50 ms: " + ", ".join(
+        f"{h} {hops[h]['p50']:.2f}" for h in HOPS) + "; hop p99 ms: "
+        + ", ".join(f"{h} {hops[h]['p99']:.2f}" for h in HOPS)
+        + f"; a request record with the five hops for each of the "
+        f"{snap['completed']} requests, and their hops sum to their e2e "
+        f"latencies within {gap:.4f} us")
+    by_size = {}
+    for key, ms in zip(timed.batches, timed.ms):
+        by_size.setdefault(key, []).append(ms)
+    print(f"[batcher full width] dispatcher host ms per batch (the dispatch "
+          f"call, host clock): median {statistics.median(host):.2f}, min "
+          f"{host[0]:.2f}, max {host[-1]:.2f} over {len(host)} batches; by "
+          "bucket and batch, median (batches): " + "; ".join(
+              f"{sh[0]}x{sh[1]} batch {n} {statistics.median(v):.2f} "
+              f"({len(v)})" for (sh, n), v in sorted(by_size.items()))
+          + f"; dispatcher busy {sum(host) / 1e3 / wall_s:.1%} of the run; "
+          f"decode kernel launches {launches} [{smi}]")
+
+    with DynamicBatcher(pred, max_batch=8, max_wait_ms=25, max_queue=64,
+                        device_decode=False) as server:
+        server.warmup(sizes[:1])
+        t0 = time.perf_counter()
+        results = drive(server, images[:16:2], clients=2)
+        pool_s = time.perf_counter() - t0
+        snap = server.metrics.snapshot()
+    check(len(results) == 8 and snap["completed"] == 8
+          and snap["failed"] == 0 and snap["decode_host_fallback"] == 8,
+          f"batcher host-pool lane: {snap['completed']} of 8 completed, "
+          f"{snap['failed']} failed, {snap['decode_host_fallback']} host "
+          "decodes")
+    print(f"[batcher full width] host-pool lane (device_decode=False): 8 "
+          f"requests completed in {pool_s:.2f} s, decode_host_fallback 8, "
+          f"e2e p50 {snap['latency_ms']['p50']:.2f} ms [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -916,6 +1290,7 @@ def main() -> int:
         bytes=samples * 4 + 2 * x_ref.numel() * 4 + pairs * 4 * 4,
         ops=samples * 8 + pairs * 12)
     dense_cases(sk, dev, gen, valid_h, valid_w, kw_pk, kw_st)
+    bucket_cases(sk, dev, params, kw_pk, kw_st, smi)
     generic_cases(kp, paf, x_ref, y_ref, valid_h, valid_w, kw_pk, kw_st)
 
     peaks = TopKPeaks(*pk_plain)
@@ -961,21 +1336,11 @@ def main() -> int:
     decoded = pred.predict_decoded_batch(requests)
     asm_launches = cuda_assembly.greedy_assemble_kernel.launches
     check(asm_launches > 0, "planted serve: greedy_assemble never launched")
-    mapping = sk.dt_gt_mapping
     worst = 0.0
     for i, dec in enumerate(decoded):
         check(dec.ok, f"planted request {i}: an overflow flag is set")
-        people = decode_device(dec, sk)
-        check(len(people) == len(planted), f"planted request {i}: decoded "
-              f"{len(people)} people, planted {len(planted)}")
-        for joints in planted:
-            want = {gt: joints[dt] for dt, gt in mapping.items()
-                    if gt is not None}
-            errs = [max(np.hypot(kps[gt][0] - xy[0], kps[gt][1] - xy[1])
-                        for gt, xy in want.items())
-                    for kps, _ in people]
-            worst = max(worst, min(errs))
-    check(worst <= 1.0, f"planted keypoints off by {worst:.3f} px")
+        worst = max(worst, planted_error(sk, decode_device(dec, sk),
+                                         planted, f"planted request {i}"))
     print(f"[4 planted] {len(requests)} requests of widths "
           f"{[r.shape[1] for r in requests]}: {len(planted)} people each, "
           f"ok, max keypoint error {worst:.3f} px; greedy_assemble launched "
@@ -995,19 +1360,13 @@ def main() -> int:
           f"autocast, built and warmed up in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    for fn in (cuda_peaks.topk_peaks_kernel,
-               cuda_peaks.limb_pair_stats_kernel,
-               cuda_assembly.greedy_assemble_kernel):
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = pred.predict_decoded_batch(images)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {
-        "topk_peaks": cuda_peaks.topk_peaks_kernel.launches,
-        "limb_pair_stats": cuda_peaks.limb_pair_stats_kernel.launches,
-        "greedy_assemble": cuda_assembly.greedy_assemble_kernel.launches}
+    launches = read_launches()
     peak_mem = torch.cuda.max_memory_allocated()
     print(f"[5 full width] kernel launches in one predict_decoded_batch "
           f"of {BATCH}: {launches}")
@@ -1073,8 +1432,20 @@ def main() -> int:
           f"timed call {wall_s * 1e3:.2f} ms), peak device memory "
           f"{peak_mem / 2**30:.2f} GiB [{smi}]")
 
+    # -------------------------------------------- batcher (5 to 6)
+    planted_batcher(sk, stub_maps, planted, smi)
+    batcher_launches = full_width_batcher(pred, rng, smi)
+
     del model, pred, bucket, lane_maps, out, resolve, again
+    # the batcher's dispatcher, fetcher and pool threads each left a
+    # cuBLAS workspace on the card; release them so phase 6's peak is its
+    # own (its thread makes its workspace anew)
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
+    print(f"[batcher] device memory allocated after the serve phases "
+          f"{held / 2**20:.1f} MiB, {torch.cuda.memory_allocated() / 2**20:.1f}"
+          f" MiB once the cuBLAS workspaces are released")
 
     # ---------------------------------------- 6. training at full width
     launches.update(train_full_width(cfg, dev, smi))
@@ -1092,8 +1463,16 @@ def main() -> int:
                          "improved_body_parts_tpu/ops/pallas_focal.py:98"),
            "focal_bwd": ("improved_body_parts_torch/csrc/focal.cu",
                          "improved_body_parts_tpu/ops/pallas_focal.py:120")}
+    # the main path of the decode kernels is the batcher's fused lane
+    # (its full-width run); phase 5's one batch is kept beside it
+    by_path = {k: {"predict_decoded_batch": launches[k],
+                   "batcher": batcher_launches[k]} for k in DECODE_KERNELS}
+    by_path.update({k: {"train_epoch": launches[k]}
+                    for k in ("focal_fwd", "focal_bwd")})
+    launches.update(batcher_launches)
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k],
+                    launches_by_path=by_path[k],
                     max_abs_err=r["err"], ms=r["ms"],
                     device_ms=r["device_ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

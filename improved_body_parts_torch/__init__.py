@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of ``improved_body_parts_tpu`` for NVIDIA Hopper.
 
 The package mirrors the JAX package's module names (``config``,
-``models``, ``ops``, ``infer``, ``data``, ``train``, ``utils``) and keeps
+``models``, ``ops``, ``infer``, ``data``, ``train``, ``serve``, ``obs``,
+``utils``) and keeps
 its public layouts (NHWC maps, ``(C, K)`` / ``(L, M)`` decode records),
 so each counterpart is easy to find and the tests compare like with
 like.  It imports ``torch`` and

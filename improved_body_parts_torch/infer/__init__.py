@@ -1,12 +1,22 @@
-"""Inference: the fused device-decode lane and its host finish."""
+"""Inference: the device lanes of the predictor, their host decode, and
+the pipelined and serving plumbing shared with ``serve``."""
 from .decode import (
     CompactOverflow,
     CompactResult,
     DeviceDecoded,
+    EscalationSignals,
+    assemble,
+    decode,
+    decode_compact,
     decode_device,
+    device_signals,
     device_subset_candidate,
+    find_connections,
+    find_peaks,
+    find_people,
     subsets_to_keypoints,
 )
+from .pipeline import compact_decode_fn, device_decode_fn, pipelined_inference
 from .predict import (
     COMPACT_M_FACTOR,
     Predictor,
@@ -20,11 +30,22 @@ __all__ = [
     "CompactOverflow",
     "CompactResult",
     "DeviceDecoded",
+    "EscalationSignals",
     "Predictor",
+    "assemble",
+    "compact_decode_fn",
     "cubic_weights",
+    "decode",
+    "decode_compact",
     "decode_device",
+    "device_decode_fn",
+    "device_signals",
     "device_subset_candidate",
+    "find_connections",
+    "find_peaks",
+    "find_people",
     "pad_right_down",
+    "pipelined_inference",
     "subsets_to_keypoints",
     "trivial_grid",
     "upsample_cubic",

@@ -1,29 +1,39 @@
-"""Flip-ensemble prediction and the fused device decode (the serve lane).
+"""Flip-ensemble prediction, the fused device decode (the serve lane), and
+the compact and full-map lanes its fallbacks and the host-pool lane use.
 
-Counterpart of the batched fused-decode lane of
-``improved_body_parts_tpu/infer/predict.py``
-(``Predictor.predict_decoded_batch_async``, the program
-``_compact_batch_fn(_decode_extract_fn)``).  Per batch of same-shape
+Counterpart of the single-scale lanes of
+``improved_body_parts_tpu/infer/predict.py``.  Per batch of same-shape
 images, all on the device:
 
 1. one forward of the IMHN over [images, mirrored images] (2N lanes);
 2. the flip merge (mirror-lane channel permutation + average);
 3. the x stride cubic upsample (``infer.resize``);
 4. per image, peak top-K (``ops.peaks.topk_peaks``), dense limb sampling
-   (``limb_pair_stats``), acceptance + top-M ranking
-   (``limb_topk_from_stats``) and greedy assembly
-   (``ops.assembly.greedy_assemble``);
-5. everything packed into one fp32 row per image, fetched once.
+   (``limb_pair_stats``) and acceptance + top-M ranking
+   (``limb_topk_from_stats``): the compact records;
+5. on the fused lane, greedy assembly (``ops.assembly.greedy_assemble``);
+6. everything packed into one fp32 row per image, fetched once.
 
-The packed row keeps the JAX package's layout exactly, so one unpacker
-reads either package's buffers.  Host preprocessing (cubic resize to
-``boxsize``, bucket padding) is the JAX package's, with cv2.  Not ported
-yet (ROADMAP): the multi-scale / rotation grid and fused TTA, the
-``maps`` / ``peaks`` / ``compact`` modes, device replicas and the
-spatial mesh.
+The packed rows keep the JAX package's layouts exactly, so one unpacker
+reads either package's buffers.  The lanes:
+
+- ``predict_decoded(_batch)(_async)``: the fused decode (1-6), what the
+  serving engine (``serve.DynamicBatcher``) dispatches by default;
+- ``predict_compact(_batch)(_async)``: the compact records (1-4 and 6),
+  decoded on the host by ``infer.decode.decode_compact``;
+- ``predict_fast(_async)``: the full maps plus a ``keypoint_nms`` peak
+  mask over the valid region (the JAX "peaks" mode), decoded on the host
+  by ``infer.decode.decode``: the fallback when the compact capacities
+  overflow.
+
+Host preprocessing (cubic resize to ``boxsize``, bucket padding) is the
+JAX package's, with cv2.  Not ported yet (ROADMAP): the multi-scale /
+rotation grid and fused TTA, and the spatial mesh.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import cv2
@@ -38,6 +48,7 @@ from ..config import (
     default_inference_params,
 )
 from ..ops.assembly import greedy_assemble
+from ..ops.nms import keypoint_nms
 from ..ops.peaks import (
     LimbCandidates,
     TopKPeaks,
@@ -85,9 +96,9 @@ def pad_right_down(img: np.ndarray, multiple: int, pad_value: int
 
 
 class Predictor:
-    """Runs the fused decode lane of ``model`` on ``device`` (``"cuda"``
-    unless the caller asks for ``"cpu"``, where the kernels' plain
-    versions run).
+    """Runs the fused decode, compact and full-map lanes of ``model`` on
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``, where the
+    kernels' plain versions run).
 
     ``model`` maps (N, H, W, 3) float images in [0, 1] to ``[stack][scale]``
     NHWC float32 predictions (``models.posenet.PoseNet``) and lies on
@@ -110,15 +121,25 @@ class Predictor:
         self.bucket = max(bucket, self.model_params.max_downsample)
         self.compact_topk = compact_topk
         self.assembly_pmax = assembly_pmax
+        # (mode, (n, h, w), thre1, spec) of every batch program this
+        # predictor has run: the first run of each pays the card's
+        # one-off costs (the kernels' build, cuDNN's algorithm choice,
+        # the allocator's first blocks); precompile_compact counts and
+        # pays them before traffic arrives
+        self._warmed: set = set()
 
     # ------------------------------------------------------------------ #
+    def _compact_spec(self, prm: InferenceParams):
+        """(thre2, mid_num, offset_radius, top-K, connect_ration): the
+        extraction knobs, in the JAX package's spec order."""
+        return (prm.thre2, prm.mid_num, prm.offset_radius,
+                self.compact_topk, prm.connect_ration)
+
     def _decode_spec(self, prm: InferenceParams):
-        """((thre2, mid_num, offset_radius, top-K, connect_ration),
-        (p_max, len_rate, connection_tole, remove_recon, min_parts,
-        min_mean_score)): the extraction and assembly knobs, in the JAX
-        package's spec order."""
-        return ((prm.thre2, prm.mid_num, prm.offset_radius,
-                 self.compact_topk, prm.connect_ration),
+        """(compact spec, (p_max, len_rate, connection_tole, remove_recon,
+        min_parts, min_mean_score)): the extraction and assembly knobs,
+        in the JAX package's spec order."""
+        return (self._compact_spec(prm),
                 (self.assembly_pmax, prm.len_rate, prm.connection_tole,
                  prm.remove_recon, prm.min_parts, prm.min_mean_score))
 
@@ -149,18 +170,12 @@ class Predictor:
         maps = self._merge_flip(out[:n], out[n:].flip(2))
         return upsample_cubic(maps, self.skeleton.stride)
 
-    @torch.inference_mode()
-    def decode_maps(self, maps: torch.Tensor, valid_h: torch.Tensor,
-                    valid_w: torch.Tensor, thre1: float, spec
-                    ) -> torch.Tensor:
-        """Ensembled maps -> one packed fp32 row per image: the compact
-        records, the greedy-assembled person table, its prune mask and
-        [n_people, peak/cand/person overflow] (layout twin of
-        :meth:`_unpack_decoded`)."""
+    def _records(self, maps: torch.Tensor, valid_h: torch.Tensor,
+                 valid_w: torch.Tensor, thre1: float, compact_spec):
+        """Ensembled maps -> (TopKPeaks, LimbCandidates) of every image:
+        the compact records, the shared front half of both payloads."""
         sk = self.skeleton
-        (thre2, mid_num, radius, topk, connect_ration), asm_spec = spec
-        p_max, len_rate, connection_tole, remove_recon, min_parts, \
-            min_mean_score = asm_spec
+        thre2, mid_num, radius, topk, connect_ration = compact_spec
         limbs_from = tuple(a for a, _ in sk.limbs_conn)
         limbs_to = tuple(b for _, b in sk.limbs_conn)
         kp = maps[..., sk.paf_layers:sk.paf_layers + sk.num_parts]
@@ -175,8 +190,38 @@ class Predictor:
                                      limbs_to=limbs_to,
                                      connect_ration=connect_ration,
                                      m_cap=COMPACT_M_FACTOR * topk)
+        return peaks, cands
+
+    @torch.inference_mode()
+    def compact_maps(self, maps: torch.Tensor, valid_h: torch.Tensor,
+                     valid_w: torch.Tensor, thre1: float, compact_spec
+                     ) -> torch.Tensor:
+        """Ensembled maps -> one packed fp32 row per image: the top-K peak
+        records and the accepted limb candidates (layout twin of
+        :meth:`_unpack_compact`)."""
+        peaks, cands = self._records(maps, valid_h, valid_w, thre1,
+                                     compact_spec)
+        n = maps.shape[0]
+        return torch.cat([f.reshape(n, -1).to(torch.float32)
+                          for f in tuple(peaks) + tuple(cands)], dim=1)
+
+    @torch.inference_mode()
+    def decode_maps(self, maps: torch.Tensor, valid_h: torch.Tensor,
+                    valid_w: torch.Tensor, thre1: float, spec
+                    ) -> torch.Tensor:
+        """Ensembled maps -> one packed fp32 row per image: the compact
+        records, the greedy-assembled person table, its prune mask and
+        [n_people, peak/cand/person overflow] (layout twin of
+        :meth:`_unpack_decoded`)."""
+        sk = self.skeleton
+        compact_spec, asm_spec = spec
+        p_max, len_rate, connection_tole, remove_recon, min_parts, \
+            min_mean_score = asm_spec
+        peaks, cands = self._records(maps, valid_h, valid_w, thre1,
+                                     compact_spec)
         asm = greedy_assemble(
-            peaks, cands, limbs_from=limbs_from, limbs_to=limbs_to,
+            peaks, cands, limbs_from=tuple(a for a, _ in sk.limbs_conn),
+            limbs_to=tuple(b for _, b in sk.limbs_conn),
             num_parts=sk.num_parts, p_max=p_max, len_rate=len_rate,
             connection_tole=connection_tole, remove_recon=remove_recon,
             min_parts=min_parts, min_mean_score=min_mean_score)
@@ -190,32 +235,120 @@ class Predictor:
                           for f in fields], dim=1)
 
     # ------------------------------------------------------------------ #
-    def predict_decoded(self, image_bgr: np.ndarray,
-                        thre1: Optional[float] = None,
-                        params: Optional[InferenceParams] = None
-                        ) -> DeviceDecoded:
-        """Fused end-to-end decode of one image; feed the result to
-        ``infer.decode.decode_device`` when ``.ok``."""
-        return self.predict_decoded_batch([image_bgr], thre1, params)[0]
+    def compact_lane_shape(self, image_bgr: np.ndarray,
+                           params: Optional[InferenceParams] = None
+                           ) -> Tuple[int, int]:
+        """Predicted padded input shape for this image under the
+        single-scale protocol: the grouping key of compact batching
+        (``serve.DynamicBatcher`` buckets requests by it).
 
-    def predict_decoded_batch(self, images_bgr: Sequence[np.ndarray],
-                              thre1: Optional[float] = None,
-                              params: Optional[InferenceParams] = None
-                              ) -> List[DeviceDecoded]:
-        """Batched fused decode; list of ``DeviceDecoded`` per image."""
-        return self.predict_decoded_batch_async(images_bgr, thre1,
-                                                params)()
+        Advisory only: the batch dispatch regroups by the ACTUAL prepared
+        shapes, so a rare rounding mismatch with cv2's resize costs a
+        split batch, never correctness."""
+        oh, ow = image_bgr.shape[:2]
+        return self.compact_lane_shape_for(oh, ow, params)
 
-    def predict_decoded_batch_async(self, images_bgr: Sequence[np.ndarray],
-                                    thre1: Optional[float] = None,
-                                    params: Optional[InferenceParams] = None):
-        """The serving lane: images landing on the same padded shape are
-        grouped, each group runs as its binary decomposition (chunks of
-        power-of-two size, largest first; no padding lanes), the chunks'
-        packed rows are concatenated on the device and ``resolve()``
-        fetches them in one copy and returns results in input order.  On a
-        CUDA device the call only enqueues the device work: nothing is
-        read back before ``resolve()``."""
+    def compact_lane_shape_for(self, oh: int, ow: int,
+                               params: Optional[InferenceParams] = None
+                               ) -> Tuple[int, int]:
+        """:meth:`compact_lane_shape` from an (H, W) size instead of an
+        image."""
+        prm = params or self.params
+        scale = self._clamp_scale(
+            prm.scale_search[0] * self.model_params.boxsize / oh, oh, ow)
+        rh, rw = round(oh * scale), round(ow * scale)
+        b = self.bucket
+        return (rh + (-rh) % b, rw + (-rw) % b)
+
+    def enumerate_bucket_shapes(self, image_sizes: Sequence[Tuple[int, int]],
+                                params: Optional[InferenceParams] = None
+                                ) -> List[Tuple[int, int]]:
+        """Deduplicated, sorted padded lane shapes the given (H, W) image
+        sizes bucket into: the shape set a serving deployment warms
+        (:meth:`precompile_compact`)."""
+        return sorted({self.compact_lane_shape_for(oh, ow, params)
+                       for oh, ow in image_sizes})
+
+    def device_replica(self, device) -> "Predictor":
+        """A serving replica of this predictor on ``device``: a shallow
+        copy sharing the config, whose model is a deep copy moved to
+        ``device`` and whose warm set starts empty (each device pays its
+        own first-run costs).  ``serve.DynamicBatcher`` sends each batch
+        to its least-loaded replica."""
+        clone = copy.copy(self)
+        clone.device = resolve_device(device)
+        clone.model = copy.deepcopy(self.model).to(clone.device)
+        clone._warmed = set()
+        return clone
+
+    def precompile_compact(self, lane_shapes: Sequence[Tuple[int, int]],
+                           batch_sizes: Sequence[int] = (1,),
+                           thre1: Optional[float] = None,
+                           params: Optional[InferenceParams] = None,
+                           decode: bool = False) -> int:
+        """Run the compact-batch lane (the fused decode lane with
+        ``decode=True``) once on zeros for every (lane shape x batch
+        size), and the single-image flush (batch 1) of every shape,
+        waiting for each to finish.
+
+        PyTorch compiles nothing ahead, but the first run of a shape
+        pays the kernels' build, cuDNN's algorithm choice and the caching
+        allocator's first blocks: warming every shape the traffic can hit
+        moves those costs to start-up.  Returns the number of
+        (shape x batch) combinations this predictor had not run before
+        (0 on a fully warm predictor)."""
+        prm = params or self.params
+        if not trivial_grid(prm):
+            raise ValueError(
+                "precompile_compact covers the single-scale compact-batch "
+                "protocol; scale/rotation grids dispatch per image")
+        if thre1 is None:
+            thre1 = prm.thre1
+        mode = "decode" if decode else "compact"
+        spec = self._decode_spec(prm) if decode else self._compact_spec(prm)
+        fresh = 0
+        with self._device_scope():
+            for h, w in lane_shapes:
+                for n in sorted({1, *map(int, batch_sizes)}):
+                    key = (mode, (n, int(h), int(w)), thre1, spec)
+                    fresh += key not in self._warmed
+                    imgs = np.zeros((n, int(h), int(w), 3), np.float32)
+                    valid = np.tile(np.array([[h, w]], np.int32), (n, 1))
+                    self._run_chunk(mode, imgs, valid, thre1, spec).cpu()
+        return fresh
+
+    # ------------------------------------------------------------------ #
+    def _device_scope(self):
+        """Makes the predictor's card current on the calling thread (the
+        kernels launch on the current device), nothing on the CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _run_chunk(self, mode: str, imgs: np.ndarray, valid: np.ndarray,
+                   thre1: float, spec) -> torch.Tensor:
+        """One same-shape chunk through the lane ``mode`` ("compact" or
+        "decode"): upload, forward, extraction; (n, P) packed rows on the
+        device.  Marks the chunk's program warm."""
+        batch = self._upload(imgs)
+        valid_d = self._upload(valid)
+        maps = self.ensemble_maps(batch)
+        extract = self.decode_maps if mode == "decode" else self.compact_maps
+        rows = extract(maps, valid_d[:, 0], valid_d[:, 1], thre1, spec)
+        self._warmed.add((mode, tuple(imgs.shape[:3]), thre1, spec))
+        return rows
+
+    def _packed_batch_async(self, images_bgr: Sequence[np.ndarray],
+                            thre1: Optional[float],
+                            params: Optional[InferenceParams], mode: str):
+        """The batched dispatch shared by the compact and fused-decode
+        lanes: images landing on the same padded shape are grouped, each
+        group runs as its binary decomposition (chunks of power-of-two
+        size, largest first; no padding lanes), the chunks' packed rows
+        are concatenated on the device and ``resolve()`` fetches them in
+        one copy and returns results in input order.  On a CUDA device
+        the call only enqueues the device work: nothing is read back
+        before ``resolve()``."""
         prm = params or self.params
         if not trivial_grid(prm):
             raise NotImplementedError(
@@ -226,7 +359,8 @@ class Predictor:
         if not len(images_bgr):
             return lambda: []
         mp = self.model_params
-        spec = self._decode_spec(prm)
+        spec = self._decode_spec(prm) if mode == "decode" \
+            else self._compact_spec(prm)
 
         prepared, sizes = [], []
         for image in images_bgr:
@@ -241,25 +375,157 @@ class Predictor:
             groups.setdefault(p.shape, []).append(i)
 
         order, bufs = [], []
-        for idxs in groups.values():
-            for chunk in _pow2_chunks(idxs):
-                batch = self._upload(np.stack([prepared[i] for i in chunk]))
-                valid = self._upload(np.array([sizes[i][2:] for i in chunk],
-                                              np.int32))
-                maps = self.ensemble_maps(batch)
-                bufs.append(self.decode_maps(maps, valid[:, 0], valid[:, 1],
-                                             thre1, spec))
-                order.extend(chunk)
-        all_d = torch.cat(bufs, dim=0) if len(bufs) > 1 else bufs[0]
+        with self._device_scope():
+            for idxs in groups.values():
+                for chunk in _pow2_chunks(idxs):
+                    bufs.append(self._run_chunk(
+                        mode, np.stack([prepared[i] for i in chunk]),
+                        np.array([sizes[i][2:] for i in chunk], np.int32),
+                        thre1, spec))
+                    order.extend(chunk)
+            all_d = torch.cat(bufs, dim=0) if len(bufs) > 1 else bufs[0]
 
         def resolve():
             buf = all_d.cpu().numpy()  # (n, P) -- one fetch
             results = [None] * len(order)
             for row, i in enumerate(order):
                 oh, ow, rh, rw = sizes[i]
-                results[i] = self._unpack_decoded(buf[row], spec, rh,
-                                                  (ow / rw, oh / rh))
+                if mode == "decode":
+                    results[i] = self._unpack_decoded(buf[row], spec, rh,
+                                                      (ow / rw, oh / rh))
+                else:
+                    results[i] = self._unpack_compact(buf[row], spec[3], rh,
+                                                      (ow / rw, oh / rh))
             return results
+
+        return resolve
+
+    # ------------------------------------------------------------------ #
+    def predict_decoded(self, image_bgr: np.ndarray,
+                        thre1: Optional[float] = None,
+                        params: Optional[InferenceParams] = None
+                        ) -> DeviceDecoded:
+        """Fused end-to-end decode of one image; feed the result to
+        ``infer.decode.decode_device`` when ``.ok``."""
+        return self.predict_decoded_async(image_bgr, thre1, params)()
+
+    def predict_decoded_async(self, image_bgr: np.ndarray,
+                              thre1: Optional[float] = None,
+                              params: Optional[InferenceParams] = None):
+        """Dispatch the fused decode of one image (the serving engine's
+        singleton flush); returns a ``resolve()`` closure giving its
+        ``DeviceDecoded``."""
+        resolve = self._packed_batch_async([image_bgr], thre1, params,
+                                           mode="decode")
+        return lambda: resolve()[0]
+
+    def predict_decoded_batch(self, images_bgr: Sequence[np.ndarray],
+                              thre1: Optional[float] = None,
+                              params: Optional[InferenceParams] = None
+                              ) -> List[DeviceDecoded]:
+        """Batched fused decode; list of ``DeviceDecoded`` per image."""
+        return self.predict_decoded_batch_async(images_bgr, thre1,
+                                                params)()
+
+    def predict_decoded_batch_async(self, images_bgr: Sequence[np.ndarray],
+                                    thre1: Optional[float] = None,
+                                    params: Optional[InferenceParams] = None):
+        """The serving lane: forward, extraction and assembly for every
+        image (see :meth:`_packed_batch_async` for the grouping, chunking
+        and single-fetch contract); ``resolve()`` returns one
+        ``DeviceDecoded`` per image, in input order."""
+        return self._packed_batch_async(images_bgr, thre1, params,
+                                        mode="decode")
+
+    def predict_compact(self, image_bgr: np.ndarray,
+                        thre1: Optional[float] = None,
+                        params: Optional[InferenceParams] = None
+                        ) -> CompactResult:
+        """The compact lane for one image: everything up to the
+        sequential decode runs on the device and only the peak records
+        and accepted limb candidates are fetched; feed the result to
+        ``infer.decode.decode_compact``."""
+        return self.predict_compact_async(image_bgr, thre1, params)()
+
+    def predict_compact_async(self, image_bgr: np.ndarray,
+                              thre1: Optional[float] = None,
+                              params: Optional[InferenceParams] = None):
+        """Dispatch the compact lane for one image; returns a
+        ``resolve()`` closure giving its ``CompactResult``."""
+        resolve = self._packed_batch_async([image_bgr], thre1, params,
+                                           mode="compact")
+        return lambda: resolve()[0]
+
+    def predict_compact_batch(self, images_bgr: Sequence[np.ndarray],
+                              thre1: Optional[float] = None,
+                              params: Optional[InferenceParams] = None
+                              ) -> List[CompactResult]:
+        """The compact lane on N images; one ``CompactResult`` each."""
+        return self.predict_compact_batch_async(images_bgr, thre1,
+                                                params)()
+
+    def predict_compact_batch_async(self, images_bgr: Sequence[np.ndarray],
+                                    thre1: Optional[float] = None,
+                                    params: Optional[InferenceParams] = None):
+        """Batched twin of :meth:`predict_compact_async`, with the
+        grouping, chunking and single-fetch contract of
+        :meth:`_packed_batch_async` (the serving engine's host-pool
+        lane)."""
+        return self._packed_batch_async(images_bgr, thre1, params,
+                                        mode="compact")
+
+    def predict_fast(self, image_bgr: np.ndarray,
+                     thre1: Optional[float] = None,
+                     params: Optional[InferenceParams] = None):
+        """The full-map lane for one image; see :meth:`predict_fast_async`.
+
+        :returns: (heat, paf, peak_mask, (sx, sy)): maps at the scaled
+            resolution; multiply decoded (x, y) by (sx, sy) to land in
+            original-image coordinates."""
+        return self.predict_fast_async(image_bgr, thre1, params)()
+
+    def predict_fast_async(self, image_bgr: np.ndarray,
+                           thre1: Optional[float] = None,
+                           params: Optional[InferenceParams] = None):
+        """Dispatch the ensemble + ``keypoint_nms`` of one image on the
+        device (the JAX package's "peaks" mode: responses outside the
+        valid, un-padded region are excluded from the NMS so pad-region
+        activations cannot suppress edge peaks) and return a
+        ``resolve()`` closure that fetches the valid region's maps and
+        peak mask for the host decoder (``infer.decode.decode``).
+
+        Only valid for a 1-entry scale/rotation grid.  As in the JAX
+        package, the maps are not resized back to the original image
+        size before decoding: peak coordinates are rescaled instead."""
+        sk, mp = self.skeleton, self.model_params
+        prm = params or self.params
+        if not trivial_grid(prm):
+            raise ValueError(
+                "predict_fast requires a single-entry scale/rotation grid "
+                "(the grid is not ported yet: ROADMAP.md, grid and fused "
+                "TTA)")
+        if thre1 is None:
+            thre1 = prm.thre1
+        oh, ow = image_bgr.shape[:2]
+        scale = prm.scale_search[0] * mp.boxsize / oh
+        img, (rh, rw) = self._prepare_input(image_bgr, scale)
+        with self._device_scope(), torch.inference_mode():
+            maps = self.ensemble_maps(self._upload(img[None]))[0]
+            kp = maps[..., sk.paf_layers:sk.paf_layers + sk.num_parts]
+            h, w = kp.shape[:2]
+            dev = kp.device
+            valid = ((torch.arange(h, device=dev)[:, None, None] < rh)
+                     & (torch.arange(w, device=dev)[None, :, None] < rw))
+            kp = torch.where(valid, kp, torch.full_like(kp, -1e9))
+            peaks_d = keypoint_nms(kp, kernel=3, thre=thre1) > 0
+            maps_d = maps[:rh, :rw]
+            peaks_d = peaks_d[:rh, :rw]
+
+        def resolve():
+            maps = maps_d.cpu().numpy()
+            peak_mask = peaks_d.cpu().numpy()
+            return (maps[..., sk.paf_layers:], maps[..., :sk.paf_layers],
+                    peak_mask, (ow / rw, oh / rh))
 
         return resolve
 

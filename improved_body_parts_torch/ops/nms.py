@@ -1,17 +1,35 @@
-"""Host-side peak NMS + sub-pixel refinement (NumPy).
+"""Peak NMS (on tensors, for the full-map path) + host-side NMS and
+sub-pixel refinement (NumPy).
 
-The port's own copy of the NumPy half of
-``improved_body_parts_tpu/ops/nms.py`` (reference: utils/util.py:177-211
-``keypoint_heatmap_nms`` and ``refine_centroid``): a 3x3 max-pool with
-reflect padding and threshold, and a weighted centroid over a (2r+1)^2
-box that falls back to the raw anchor when the box crosses the border.
-The device path does the same inside ``ops.peaks.topk_peaks``.
+The port's own copy of ``improved_body_parts_tpu/ops/nms.py``
+(reference: utils/util.py:177-211 ``keypoint_heatmap_nms`` and
+``refine_centroid``): a 3x3 max-pool with reflect padding and threshold,
+and a weighted centroid over a (2r+1)^2 box that falls back to the raw
+anchor when the box crosses the border.  :func:`keypoint_nms` is the
+JAX package's jitted max-pool compare (no Pallas kernel), here plain
+PyTorch on the maps' own device; the compact lane does the same inside
+``ops.peaks.topk_peaks``.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def keypoint_nms(heat: torch.Tensor, kernel: int = 3, thre: float = 0.1
+                 ) -> torch.Tensor:
+    """heat: (H, W, C) score maps -> same shape with non-peaks zeroed: a
+    ``kernel`` x ``kernel`` max-pool over reflect padding, kept where the
+    pixel equals its window's max and clears ``thre``."""
+    pad = (kernel - 1) // 2
+    x = heat.permute(2, 0, 1)[None]                           # (1, C, H, W)
+    padded = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    hmax = F.max_pool2d(padded, kernel, stride=1)[0].permute(1, 2, 0)
+    keep = (hmax == heat) & (heat >= thre)
+    return torch.where(keep, heat, torch.zeros_like(heat))
 
 
 def peak_mask_np(heat: np.ndarray, thre: float = 0.1) -> np.ndarray:

@@ -1,3 +1,3 @@
-from .meters import AverageMeter, StepTimer
+from .meters import AverageMeter, PercentileMeter, StepTimer
 
-__all__ = ["AverageMeter", "StepTimer"]
+__all__ = ["AverageMeter", "PercentileMeter", "StepTimer"]
