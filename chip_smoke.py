@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA H100: the serve lane and training.
+"""Drive the PyTorch port on one NVIDIA H100: the serve lane, training and
+the learn->AP loop.
 
     python3 chip_smoke.py
 
@@ -71,12 +72,40 @@ released before phase 6, so phase 6's peak memory is its own;
    wire) into ``make_train_step`` + ``train_epoch``: 2 warm-up steps, then
    10 timed steps with the focal kernels' counters set to 0 just before
    and read just after (5 launches a step each).  Losses finite, params
-   and BN running stats moved, every step counted.
+   and BN running stats moved, every step counted;
+7. learn->AP at full width: the protocol of ``cli.synth_ap`` at
+   ``CANONICAL_TRAIN.json``'s settings (``synth_canonical``: the flagship
+   IMHN, 128,998,760 parameters, remat on, bf16 autocast; 32 drawn
+   training images on a 288x384 canvas at a 192x192 input, batch 2, 18
+   epochs, seed 0; 12 held-out val images, seed 12345), in this process
+   and through the CLIs' own functions: the card machine has no h5py, so
+   the training records stay in memory (``data.fixture.fixture_records`` +
+   ``data.MemoryDataset``, the records ``build_fixture`` would write) and
+   the CLIs' HDF5 path is tested on the CPU only.  ``cli.train.train``
+   trains with the async ``CheckpointManager``; the checkpoint of epoch
+   16, which had epoch 17's in-place steps run during its write, must
+   hold the state_dict and momentum SHA-256 taken as its save returned;
+   the last committed checkpoint, restored by
+   ``cli.evaluate.load_predictor``, must have the trained model's
+   state_dict SHA-256 and the same fused-lane payload on one val image;
+   ``validation_oks`` scores it on the fused lane and on the compact lane,
+   and the untrained init (``cli.synth_ap.save_fresh_checkpoint``) on the
+   fused lane.  Then, after the counts are read, each kernel is held to
+   its plain version at this phase's own shapes, with phase 3's
+   tolerances: the focal kernels on the five calls of the first training
+   step, as the loss made them, and the decode kernels on the first val
+   image's ensembled maps, as the fused lane decoded them.  It prints
+   train imgs/s, the median step, each save's blocked and writer ms, the
+   loss curve, the APs, the device and the five kernels' launches, and
+   fails unless the trained AP is at least 0.5, the untrained AP at most
+   0.05, last/first loss at most 0.2, the two lanes' APs within 0.01 and
+   every kernel launched.
 
-Then one JSON line with every kernel's numbers (a decode kernel's
-``launches`` are the batcher's full-width run, with phase 5's beside
-them in ``launches_by_path``), the ``nvidia-smi`` line
-again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+Then one JSON line with every kernel's numbers (``launches`` are phase
+7's learn->AP run: the focal kernels in its training, the decode kernels
+in the fused-lane evaluation of its checkpoint; the other paths' counts
+stand beside them in ``launches_by_path``), the time every phase took,
+the ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
 no result.  Every number it prints is measured on the card in this run.
 """
@@ -92,6 +121,7 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, HEIGHT, WIDTH = 8, 640, 896          # the serve lane's bucket
 TOPK, RADIUS, SAMPLES = 64, 2, 20
@@ -108,6 +138,9 @@ P_MAX = 32                                  # the lane's person table
 # either bucket and a full batch of the narrow one
 BUCKET_SHAPES = ((1, HEIGHT, WIDTH, 853), (1, HEIGHT, 512, 480),
                  (BATCH, HEIGHT, 512, 480))
+# phase 7: CANONICAL_TRAIN.json's learn->AP protocol
+SYNTH_AP = dict(config="synth_canonical", train_images=32, val_images=12,
+                canvas=(288, 384), epochs=18, seed=0, val_seed=12345)
 FOCAL_FWD_PASSES = ("focal_fwd",)
 FOCAL_BWD_PASSES = ("focal_bwd",)
 
@@ -161,41 +194,50 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20):
+def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
+              windows: int = 3):
     """Device time of ``fn()`` apart from the host work around it:
     ``torch.profiler`` over ``calls`` back-to-back calls, the CUDA time of
     each kernel named in ``kernels`` (the ``__global__`` names of one
     source) over the launches recorded, times ``launches_a_call``.
-    Returns {kernel: ms a call}.  Fails when the profiler recorded no
-    launch of a kernel.  The profiler can drop the first kernel of its
-    window, so a marker kernel runs first."""
+    Returns {kernel: ms a call}.  The profiler can drop the first kernel
+    of its window, so a marker kernel runs first; now and then it records
+    no device activity at all in a window, so a window that misses a
+    kernel is profiled again, up to ``windows`` times, and the
+    measurement fails only when every window missed it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     pats = {k: re.compile(rf"(^|\W){k}($|\W)") for k in kernels}
-    us = dict.fromkeys(kernels, 0.0)
-    seen = dict.fromkeys(kernels, 0)
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for k, pat in pats.items():
-            if pat.search(e.name):
-                us[k] += e.time_range.elapsed_us()
-                seen[k] += 1
-    for k in kernels:
-        check(seen[k] > 0, f"device_ms: the profiler recorded no launch of "
-              f"{k} in {calls} calls")
-    return {k: us[k] / seen[k] * launches_a_call / 1e3 for k in kernels}
+    for window in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(kernels, 0.0)
+        seen = dict.fromkeys(kernels, 0)
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for k, pat in pats.items():
+                if pat.search(e.name):
+                    us[k] += e.time_range.elapsed_us()
+                    seen[k] += 1
+        missed = [k for k in kernels if seen[k] == 0]
+        if not missed:
+            return {k: us[k] / seen[k] * launches_a_call / 1e3
+                    for k in kernels}
+        print(f"[device_ms] profiler window {window} of {windows} recorded "
+              f"no launch of {', '.join(missed)} in {calls} calls",
+              flush=True)
+    fail(f"device_ms: the profiler recorded no launch of {', '.join(missed)} "
+         f"in {windows} windows of {calls} calls")
 
 
 def person_joints(sk, x0: float, y0: float, height: float) -> np.ndarray:
@@ -479,22 +521,59 @@ def assembly_args(sk, params) -> dict:
                 min_mean_score=params.min_mean_score)
 
 
-def bucket_cases(sk, dev, params, kw_pk, kw_st, smi):
-    """Phase 3's decode kernels at the batcher's other shapes
-    (``BUCKET_SHAPES``), each on planted people plus noise as at the
-    lane's batch of 8 (seeded apart, so the later phases draw as
-    before): ``topk_peaks`` and ``limb_pair_stats`` against their plain
-    versions, then ``greedy_assemble`` on the candidates ranked from
+def hold_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
+                connect_ration, label, smi, tag="[3 kernels]"):
+    """The three decode kernels on one batch of ensembled maps, as the
+    lane calls them: ``topk_peaks`` and ``limb_pair_stats`` against their
+    plain versions, then ``greedy_assemble`` on the candidates ranked from
     those records; integers exactly, floats bit for bit."""
     import torch
 
-    from improved_body_parts_torch.infer.resize import upsample_cubic
     from improved_body_parts_torch.ops import cuda_assembly, cuda_peaks
     from improved_body_parts_torch.ops.peaks import (
         PairStats,
         TopKPeaks,
         limb_topk_from_stats,
     )
+
+    kp = maps[..., sk.heat_start:sk.heat_start + sk.num_parts]
+    paf = maps[..., :sk.paf_layers]
+    pk = cuda_peaks.topk_peaks_plain(kp, valid_h, valid_w, **kw_pk)
+    got = cuda_peaks.topk_peaks_kernel(kp, valid_h, valid_w, **kw_pk)
+    torch.cuda.synchronize()
+    compare(f"topk_peaks ({label})", got, pk, {0, 1, 5, 6}, tol=0.0)
+    st = cuda_peaks.limb_pair_stats_plain(paf, pk[2], pk[3], **kw_st)
+    got = cuda_peaks.limb_pair_stats_kernel(paf, pk[2], pk[3], **kw_st)
+    torch.cuda.synchronize()
+    compare(f"limb_pair_stats ({label})", got, st, {1, 2}, tol=0.0)
+    peaks = TopKPeaks(*pk)
+    cands = limb_topk_from_stats(
+        PairStats(*st), peaks, valid_h, limbs_from=kw_asm["limbs_from"],
+        limbs_to=kw_asm["limbs_to"], connect_ration=connect_ration,
+        m_cap=2 * kw_pk["k"])
+    want = cuda_assembly.greedy_assemble_plain(peaks, cands, **kw_asm)
+    got = cuda_assembly.greedy_assemble_kernel(peaks, cands, **kw_asm)
+    torch.cuda.synchronize()
+    compare(f"greedy_assemble ({label})", got, want, {1, 2, 3, 4, 5},
+            tol=0.0)
+    people = int(want[2].sum())
+    check(people > 0, f"greedy_assemble ({label}): no person assembled")
+    print(f"{tag} {label}: "
+          f"{int(torch.clamp(pk[6], max=kw_pk['k']).sum())} kept peaks, "
+          f"{int(st[2].sum())} limb samples, "
+          f"{int(cands.valid.sum())} accepted candidates, {people} "
+          "people; topk_peaks, limb_pair_stats and greedy_assemble "
+          f"equal to their plain versions bit for bit [{smi}]")
+
+
+def bucket_cases(sk, dev, params, kw_pk, kw_st, smi):
+    """Phase 3's decode kernels at the batcher's other shapes
+    (``BUCKET_SHAPES``), each on planted people plus noise as at the
+    lane's batch of 8 (seeded apart, so the later phases draw as
+    before), through :func:`hold_decode`."""
+    import torch
+
+    from improved_body_parts_torch.infer.resize import upsample_cubic
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -507,38 +586,12 @@ def bucket_cases(sk, dev, params, kw_pk, kw_st, smi):
             h // 4, w // 4, dev) for _ in range(n)])
         grid = grid + 0.01 * torch.randn(grid.shape, device=dev,
                                          generator=gen)
-        maps = upsample_cubic(grid, sk.stride)
-        kp = maps[..., sk.heat_start:sk.heat_start + sk.num_parts]
-        paf = maps[..., :sk.paf_layers]
-        valid_h = torch.full((n,), h, dtype=torch.int32, device=dev)
-        valid_w = torch.full((n,), valid, dtype=torch.int32, device=dev)
-        label = f"batch {n}, {h}x{w}, valid width {valid}"
-        pk = cuda_peaks.topk_peaks_plain(kp, valid_h, valid_w, **kw_pk)
-        got = cuda_peaks.topk_peaks_kernel(kp, valid_h, valid_w, **kw_pk)
-        torch.cuda.synchronize()
-        compare(f"topk_peaks ({label})", got, pk, {0, 1, 5, 6}, tol=0.0)
-        st = cuda_peaks.limb_pair_stats_plain(paf, pk[2], pk[3], **kw_st)
-        got = cuda_peaks.limb_pair_stats_kernel(paf, pk[2], pk[3], **kw_st)
-        torch.cuda.synchronize()
-        compare(f"limb_pair_stats ({label})", got, st, {1, 2}, tol=0.0)
-        peaks = TopKPeaks(*pk)
-        cands = limb_topk_from_stats(
-            PairStats(*st), peaks, valid_h, limbs_from=kw_asm["limbs_from"],
-            limbs_to=kw_asm["limbs_to"],
-            connect_ration=params.connect_ration, m_cap=2 * TOPK)
-        want = cuda_assembly.greedy_assemble_plain(peaks, cands, **kw_asm)
-        got = cuda_assembly.greedy_assemble_kernel(peaks, cands, **kw_asm)
-        torch.cuda.synchronize()
-        compare(f"greedy_assemble ({label})", got, want, {1, 2, 3, 4, 5},
-                tol=0.0)
-        people = int(want[2].sum())
-        check(people > 0, f"greedy_assemble ({label}): no person assembled")
-        print(f"[3 kernels] batcher shape {label}: "
-              f"{int(torch.clamp(pk[6], max=TOPK).sum())} kept peaks, "
-              f"{int(st[2].sum())} limb samples, "
-              f"{int(cands.valid.sum())} accepted candidates, {people} "
-              "people; topk_peaks, limb_pair_stats and greedy_assemble "
-              f"equal to their plain versions bit for bit [{smi}]")
+        hold_decode(sk, upsample_cubic(grid, sk.stride),
+                    torch.full((n,), h, dtype=torch.int32, device=dev),
+                    torch.full((n,), valid, dtype=torch.int32, device=dev),
+                    kw_pk, kw_st, kw_asm, params.connect_ration,
+                    f"batcher shape batch {n}, {h}x{w}, valid width {valid}",
+                    smi)
 
 
 def assembly_cases(sk, dev, params, peaks, cands, rng, smi):
@@ -607,6 +660,41 @@ def assembly_cases(sk, dev, params, peaks, cands, rng, smi):
     return row
 
 
+def hold_focal(calls, ct, label, tag="[3 kernels]"):
+    """The focal kernels on each ``(pred, gt, mask, chan)`` call of
+    ``calls`` against their plain versions: the forward within rel 1e-5,
+    the backward (cotangent ``ct``) bit for bit.  Returns the forward's
+    max abs error and the backward's nonzero count."""
+    import torch
+
+    from improved_body_parts_torch.ops import cuda_focal
+
+    fwd_err = fwd_rel = 0.0
+    nonzero = 0
+    for pred, gt, mask, chan in calls:
+        got = cuda_focal.focal_fwd_kernel(pred, gt, mask, chan)
+        want = cuda_focal.focal_fwd_plain(pred, gt, mask, chan)
+        dgot = cuda_focal.focal_bwd_kernel(pred, gt, mask, chan, ct)
+        dwant = cuda_focal.focal_bwd_plain(pred, gt, mask, chan, ct)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        shape = f"{tuple(pred.shape)} {str(pred.dtype)[6:]}"
+        check(np.isfinite(err) and rel <= 1e-5,
+              f"focal_fwd ({label}, {shape}): rel error {rel:.3g} against "
+              "the plain version")
+        check(torch.equal(dgot, dwant),
+              f"focal_bwd ({label}, {shape}): differs from the plain "
+              f"version in {int((dgot != dwant).sum())} places")
+        fwd_err, fwd_rel = max(fwd_err, err), max(fwd_rel, rel)
+        nonzero += int((dwant != 0).sum())
+    shapes = ", ".join(f"{tuple(p.shape)} {str(p.dtype)[6:]}"
+                       for p, _, _, _ in calls)
+    print(f"{tag} focal ({label}): forward within rel {fwd_rel:.3g} "
+          f"of the plain version, backward equal bit for bit, at {shapes}")
+    return fwd_err, nonzero
+
+
 def focal_kernels(cfg, dev):
     """Phase 3 for the focal-loss kernels: forward and backward against
     their plain versions at the canonical training shapes, on sparse GT
@@ -636,30 +724,13 @@ def focal_kernels(cfg, dev):
         scales.append((pred, gt, mask))
     kink = [(torch.where(gt >= cuda_focal.FG_THRE, 1.0, 0.0).expand_as(pred)
              .contiguous(), gt, mask) for pred, gt, mask in scales]
-    on_kink = 0
-    fwd_err = fwd_rel = 0.0
+    fwd_err, on_kink = 0.0, 0
     for label, case in (("sparse", scales), ("kink", kink)):
-        for pred, gt, mask in case:
-            got = cuda_focal.focal_fwd_kernel(pred, gt, mask, chan)
-            want = cuda_focal.focal_fwd_plain(pred, gt, mask, chan)
-            dgot = cuda_focal.focal_bwd_kernel(pred, gt, mask, chan, ct)
-            dwant = cuda_focal.focal_bwd_plain(pred, gt, mask, chan, ct)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            rel = err / max(float(want.abs().max()), 1e-30)
-            check(np.isfinite(err) and rel <= 1e-5,
-                  f"focal_fwd ({label}, {tuple(pred.shape)}): rel error "
-                  f"{rel:.3g} against the plain version")
-            check(torch.equal(dgot, dwant),
-                  f"focal_bwd ({label}, {tuple(pred.shape)}): differs from "
-                  f"the plain version in {int((dgot != dwant).sum())} "
-                  "places")
-            fwd_err, fwd_rel = max(fwd_err, err), max(fwd_rel, rel)
-            if label == "kink":
-                on_kink += int((dwant != 0).sum())
-        print(f"[3 kernels] focal ({label}): forward within rel "
-              f"{fwd_rel:.3g} of the plain version, backward equal bit "
-              "for bit at all 5 scales")
+        err, nonzero = hold_focal([(p, g, m, chan) for p, g, m in case], ct,
+                                  label)
+        fwd_err = max(fwd_err, err)
+        if label == "kink":
+            on_kink += nonzero
     check(on_kink > 0, "focal: the kink case has no gradient")
 
     def one_step(fn, *extra):
@@ -708,18 +779,12 @@ def train_full_width(cfg, dev, smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from improved_body_parts_torch.data.dataset import (
-        CocoPoseDataset,
-        batches,
-        convert_joints,
-    )
+    from improved_body_parts_torch.data import MemoryDataset, batches
     from improved_body_parts_torch.data.fixture import _synth_image
     from improved_body_parts_torch.data.hdf5_corpus import (
         build_masks,
         iter_records,
     )
-    from improved_body_parts_torch.data.heatmapper import Heatmapper
-    from improved_body_parts_torch.data.transformer import Transformer
     from improved_body_parts_torch.models import build_model
     from improved_body_parts_torch.ops import cuda_focal
     from improved_body_parts_torch.train import (
@@ -730,21 +795,6 @@ def train_full_width(cfg, dev, smi):
         train_epoch,
     )
     from improved_body_parts_torch.train.step import to_device
-
-    class MemoryDataset(CocoPoseDataset):
-        """The port's dataset over in-memory drawn records (the h5py corpus
-        reader is bypassed; sampling, augmentation and GT are the
-        package's)."""
-
-        def __init__(self, config, records, seed=0):
-            self.config, self.skeleton = config, config.skeleton
-            self.augment, self.seed = True, seed
-            self.transformer = Transformer(self.skeleton)
-            self.heatmapper = Heatmapper(self.skeleton)
-            self.records, self.keys, self._file = records, records, None
-
-        def read_raw(self, index):
-            return self.records[index]
 
     sk, tr = cfg.skeleton, cfg.train
     bs, warm_steps, steps = tr.batch_size_per_device, 2, 10
@@ -764,12 +814,12 @@ def train_full_width(cfg, dev, smi):
         for rec in iter_records({"width": 640, "height": 480}, 0, 0, persons,
                                 "SYNTH", is_validation=False):
             records.append((img, mask_miss, mask_all,
-                            convert_joints(np.asarray(rec["joints"]), sk),
+                            np.asarray(rec["joints"]),
                             tuple(rec["objpos"][0]),
                             float(rec["scale_provided"][0])))
-    warm_set = MemoryDataset(cfg, records[:bs * warm_steps])
-    timed_set = MemoryDataset(cfg, records[bs * warm_steps:
-                                           bs * (warm_steps + steps)])
+    warm_set = MemoryDataset(records[:bs * warm_steps], cfg)
+    timed_set = MemoryDataset(records[bs * warm_steps:
+                                      bs * (warm_steps + steps)], cfg)
 
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0, train=True)
@@ -896,6 +946,319 @@ def train_full_width(cfg, dev, smi):
               f"{e.key} {e.self_cpu_time_total / 1e3 / prof_steps:.2f} "
               f"({e.count // prof_steps})" for e in host[:10]))
     return launches
+
+
+def same_payload(a, b) -> bool:
+    """Field-for-field equality of two fused-lane payloads
+    (``DeviceDecoded``, nested named tuples of arrays and numbers)."""
+    if isinstance(a, tuple):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_payload(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return a == b
+
+
+def first_calls(fn, n: int, store: list):
+    """``fn`` wrapped to keep clones of the arguments of its first ``n``
+    calls in ``store``."""
+    import torch
+
+    def wrapper(*args):
+        if len(store) < n:
+            store.append(tuple(a.detach().clone()
+                               if isinstance(a, torch.Tensor) else a
+                               for a in args))
+        return fn(*args)
+    return wrapper
+
+
+def learn_to_ap(dev, smi):
+    """Phase 7: the learn->AP protocol of ``cli.synth_ap`` at
+    ``CANONICAL_TRAIN.json``'s settings, in this process (the card
+    machine has no h5py, so the drawn records stay in memory:
+    ``fixture_records`` + ``MemoryDataset``; the held-out val set is
+    written to disk as the CLIs read it), through the CLIs' own code:
+    ``cli.train.train`` trains ``synth_canonical`` (the flagship IMHN at
+    full width, remat on, bf16 autocast) for 18 epochs with the async
+    checkpoint, then the last committed checkpoint, restored by
+    ``cli.evaluate.load_predictor``, is scored with ``validation_oks`` on
+    the fused lane and on the compact lane, beside the untrained init of
+    ``cli.synth_ap.save_fresh_checkpoint``.  The focal kernels are then
+    held to their plain versions on the first training step's own
+    inputs, and the decode kernels on the first val image's maps.
+    Returns the five kernels' launches in the training run and the
+    fused-lane evaluation."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import cv2
+    import torch
+
+    from improved_body_parts_torch.cli import kernel_launches
+    from improved_body_parts_torch.cli.evaluate import load_predictor
+    from improved_body_parts_torch.cli.synth_ap import (
+        epoch_losses,
+        save_fresh_checkpoint,
+    )
+    from improved_body_parts_torch.cli.train import state_digest, train
+    from improved_body_parts_torch.config import (
+        InferenceModelParams,
+        get_config,
+    )
+    from improved_body_parts_torch.data import MemoryDataset
+    from improved_body_parts_torch.data.fixture import (
+        build_val_set,
+        fixture_records,
+    )
+    from improved_body_parts_torch.infer import Predictor
+    from improved_body_parts_torch.infer.evaluate import validation_oks
+    from improved_body_parts_torch.ops import (
+        cuda_assembly,
+        cuda_focal,
+        cuda_peaks,
+        losses,
+    )
+    from improved_body_parts_torch.train import (
+        CheckpointManager,
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+
+    wrappers = (cuda_peaks.topk_peaks_kernel,
+                cuda_peaks.limb_pair_stats_kernel,
+                cuda_assembly.greedy_assemble_kernel,
+                cuda_focal.focal_fwd_kernel, cuda_focal.focal_bwd_kernel)
+
+    def reset():
+        for fn in wrappers:
+            fn.launches = 0
+
+    def digests(state):
+        """SHA-256 of the state's model state_dict and of its momentum."""
+        opt = state.optimizer
+        names = {p: n for n, p in state.model.named_parameters()}
+        return (state_digest(state.model.state_dict()),
+                state_digest({names[p]: b for p, b in zip(opt.params,
+                                                          opt.momentum)}))
+
+    t_phase = time.perf_counter()
+    epochs = SYNTH_AP["epochs"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_synth_ap_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    cfg = get_config(SYNTH_AP["config"])
+    # cli.synth_ap's train flags: --print-freq 20; the last two epochs
+    # and the best stay on disk, not all 18 GB
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=ckpt_dir, print_freq=20, keep_last_n=2))
+    sk, tr = cfg.skeleton, cfg.train
+    net = sk.height
+    # the save of epoch 16 has all of epoch 17's in-place steps after it
+    held_epoch, held = epochs - 2, {}
+    focal_calls, lane_calls = [], []
+    manager_save, focal_l2_fused = CheckpointManager.save, \
+        losses.focal_l2_fused
+
+    def save_and_digest(self, state, epoch, *args):
+        path = manager_save(self, state, epoch, *args)
+        if epoch == held_epoch:  # before the next step can run
+            held[epoch] = digests(state)
+        return path
+
+    try:
+        records = fixture_records(
+            num_images=SYNTH_AP["train_images"],
+            img_size=SYNTH_AP["canvas"], people_per_image=2,
+            image_size=net, seed=SYNTH_AP["seed"], drawn=True)
+        train_set = MemoryDataset(records, cfg, augment=True,
+                                  seed=SYNTH_AP["seed"])
+        val_dir = os.path.join(work, "val")
+        anno = os.path.join(work, "person_keypoints_synth.json")
+        n_val = build_val_set(val_dir, anno,
+                              num_images=SYNTH_AP["val_images"],
+                              img_size=SYNTH_AP["canvas"], people_per_image=2,
+                              image_size=net, seed=SYNTH_AP["val_seed"],
+                              drawn=True)
+        bs = tr.batch_size_per_device
+        spe = max(len(train_set) // bs, 1)
+        print(f"[7 learn->AP] {SYNTH_AP['config']}: {len(records)} drawn "
+              f"training records of {SYNTH_AP['train_images']} images "
+              f"{SYNTH_AP['canvas'][0]}x{SYNTH_AP['canvas'][1]}, "
+              f"{SYNTH_AP['val_images']} held-out val images "
+              f"({n_val} persons), batch {bs} at {net}x{sk.width}, "
+              f"{spe} steps an epoch x {epochs} epochs; set up "
+              f"in {time.perf_counter() - t_phase:.1f} s")
+        log = []
+        reset()
+        CheckpointManager.save = save_and_digest
+        # one training step's five focal calls, as the loss makes them
+        losses.focal_l2_fused = first_calls(focal_l2_fused, 5, focal_calls)
+        t0 = time.perf_counter()
+        try:
+            state, report = train(cfg, train_set, epochs, device=dev,
+                                  seed=SYNTH_AP["seed"], log_fn=log.append)
+        finally:
+            CheckpointManager.save = manager_save
+            losses.focal_l2_fused = focal_l2_fused
+        fit_s = time.perf_counter() - t0
+        train_launches = kernel_launches()
+        model = state.model
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == 128_998_760 and model.remat,
+              f"synth_canonical: {n_params} parameters, remat "
+              f"{model.remat}")
+        curve = epoch_losses(ckpt_dir)
+        steps = report["steps"]
+        check(steps == spe * epochs and state.step == steps,
+              f"learn->AP: {steps} steps, state step {state.step}")
+        check(len(curve) == epochs and all(np.isfinite(curve)),
+              f"learn->AP: losses {curve}")
+        ratio = curve[-1] / curve[0]
+        blocked, written = report["save_blocked_ms"], report["save_write_ms"]
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     list(model.state_dict().values())
+                     + state.optimizer.momentum)
+        print(f"[7 learn->AP] {n_params} parameters (remat, bf16 autocast); "
+              f"{steps} steps: median step {report['step_ms_median']:.2f} ms "
+              f"(CUDA events around each step), "
+              f"{report['train_imgs_per_s']:.2f} train imgs/s (host clock "
+              f"over the epochs' batch loops), train {fit_s:.1f} s wall "
+              f"[{smi}]")
+        print(f"[7 learn->AP] CheckpointManager.save, {len(blocked)} saves "
+              f"of a {nbytes / 1e9:.3f} GB state (fp32 parameters, BN stats "
+              f"and momentum): blocked median {statistics.median(blocked):.2f}"
+              f" ms (max {max(blocked):.2f}; the snapshot into pinned host "
+              f"buffers, the first save allocates them), writer median "
+              f"{statistics.median(written):.2f} ms (max {max(written):.2f}; "
+              f"torch.save + commit, on its thread); "
+              f"{sum(n.startswith('epoch_') for n in os.listdir(ckpt_dir))}"
+              f" checkpoints retained "
+              f"(keep_last_n 2 + the best) [{smi}]")
+        print(f"[7 learn->AP] train loss first {curve[0]:.4f} -> last "
+              f"{curve[-1]:.4f} (ratio {ratio:.4f}); curve "
+              + ", ".join(f"{x:.3f}" for x in curve))
+
+        # the save that had a whole epoch of in-place steps after it: its
+        # checkpoint holds the state as it was when save() returned
+        path = os.path.join(ckpt_dir, f"epoch_{held_epoch}")
+        payload = restore_checkpoint(path)
+        check(held_epoch in held and (
+            state_digest(payload["model"]),
+            state_digest(payload["optimizer"]["momentum"]))
+            == held[held_epoch],
+            f"learn->AP: {path} differs from the state as it was when its "
+            f"save returned, before epoch {held_epoch + 1}'s {spe} in-place "
+            "steps (the snapshot did not own its copy)")
+        del payload
+        print(f"[7 learn->AP] epoch_{held_epoch}: its state_dict and momentum "
+              f"have the SHA-256 they had when CheckpointManager.save "
+              f"returned, after epoch {held_epoch + 1}'s {spe} in-place "
+              "steps ran during its write")
+
+        # the last committed checkpoint in a fresh model, as the evaluate
+        # CLI loads it; the trained run's own model beside it
+        latest = latest_checkpoint(ckpt_dir)
+        check(latest is not None and latest.endswith(f"epoch_{epochs - 1}"),
+              f"learn->AP: latest committed checkpoint {latest}")
+        restored = load_predictor(SYNTH_AP["config"], latest, device=dev,
+                                  boxsize=net)
+        check(state_digest(restored.model.state_dict())
+              == state_digest(model.state_dict()),
+              "learn->AP: the restored state_dict differs from the "
+              "trained run's")
+        model.eval()
+        own = Predictor(model, sk,
+                        model_params=InferenceModelParams(boxsize=net),
+                        device=dev)
+        image = cv2.imread(os.path.join(val_dir, "000000000001.jpg"))
+        mine, theirs = (own.predict_decoded(image),
+                        restored.predict_decoded(image))
+        check(same_payload(mine, theirs), "learn->AP: the restored "
+              "checkpoint's fused-lane payload on val image 1 differs from "
+              "the trained run's own")
+        print(f"[7 learn->AP] {latest}: restored into a fresh model, its "
+              f"state_dict has the trained run's SHA-256 and its fused-lane "
+              f"payload on val image 1 equals the trained run's field for "
+              f"field ({mine.n_people} people, ok {mine.ok})")
+        del own
+
+        kw = dict(use_native=True, results_dir=os.path.join(work, "results"))
+        reset()
+        # the first val image's ensembled maps, as the lane decodes them
+        restored.decode_maps = first_calls(restored.decode_maps, 1,
+                                           lane_calls)
+        t0 = time.perf_counter()
+        ap_device = validation_oks(restored, anno, val_dir,
+                                   device_decode=True,
+                                   dump_name="synth_trained", **kw)
+        eval_s = time.perf_counter() - t0
+        eval_launches = kernel_launches()
+        del restored.decode_maps
+        ap_compact = validation_oks(restored, anno, val_dir, compact=True,
+                                    dump_name="synth_trained_compact", **kw)
+        fresh = load_predictor(
+            SYNTH_AP["config"],
+            save_fresh_checkpoint(SYNTH_AP["config"],
+                                  os.path.join(work, "ckpt_fresh"),
+                                  SYNTH_AP["seed"]),
+            device=dev, boxsize=net)
+        ap_fresh = validation_oks(fresh, anno, val_dir, device_decode=True,
+                                  dump_name="synth_fresh", **kw)
+        print(f"[7 learn->AP] OKS AP on the held-out val set: trained "
+              f"{ap_device['AP']:.4f} on the fused lane (AP50 "
+              f"{ap_device['AP50']:.4f}, AR {ap_device['AR']:.4f}; "
+              f"{SYNTH_AP['val_images']} images in {eval_s:.2f} s), "
+              f"{ap_compact['AP']:.4f} on the compact lane; untrained "
+              f"{ap_fresh['AP']:.4f} [{smi}]")
+        launches = {**{k: train_launches[k] for k in ("focal_fwd",
+                                                       "focal_bwd")},
+                    **{k: eval_launches[k] for k in DECODE_KERNELS}}
+        print(f"[7 learn->AP] device {torch.cuda.get_device_name(dev)} "
+              f"({dev.type}); kernel launches: training {train_launches}, "
+              f"the trained checkpoint's fused-lane evaluation "
+              f"{eval_launches}")
+
+        # every kernel against its plain version at this phase's shapes,
+        # after the counts were read
+        check(len(focal_calls) == 5 and len(lane_calls) == 1,
+              f"learn->AP: captured {len(focal_calls)} focal calls and "
+              f"{len(lane_calls)} lane decodes")
+        hold_focal(focal_calls,
+                   torch.tensor(tr.nstack_weight, device=dev) * 0.25,
+                   "the first training step's inputs", tag="[7 learn->AP]")
+        maps, valid_h, valid_w, thre1, spec = lane_calls[0]
+        (thre2, mid_num, radius, topk, connect_ration), asm = spec
+        limbs = dict(limbs_from=tuple(a for a, _ in sk.limbs_conn),
+                     limbs_to=tuple(b for _, b in sk.limbs_conn))
+        hold_decode(
+            sk, maps, valid_h, valid_w,
+            dict(thre=thre1, k=topk, radius=radius),
+            dict(limbs, num_samples=mid_num, thre2=thre2),
+            dict(limbs, num_parts=sk.num_parts,
+                 **dict(zip(("p_max", "len_rate", "connection_tole",
+                             "remove_recon", "min_parts", "min_mean_score"),
+                            asm))),
+            connect_ration,
+            f"the first val image's maps {tuple(maps.shape)}, valid "
+            f"{int(valid_h[0])}x{int(valid_w[0])}", smi,
+            tag="[7 learn->AP]")
+
+        for kname, n in launches.items():
+            check(n > 0, f"learn->AP: {kname} never launched")
+        check(ap_device["AP"] >= 0.5,
+              f"learn->AP: trained AP {ap_device['AP']:.4f} < 0.5")
+        check(ap_fresh["AP"] <= 0.05,
+              f"learn->AP: untrained AP {ap_fresh['AP']:.4f} > 0.05")
+        check(ratio <= 0.2, f"learn->AP: last/first loss {ratio:.4f} > 0.2")
+        check(abs(ap_compact["AP"] - ap_device["AP"]) <= 0.01,
+              f"learn->AP: compact AP {ap_compact['AP']:.4f} and fused AP "
+              f"{ap_device['AP']:.4f} differ by more than 0.01")
+        print(f"[7 learn->AP] phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def kernel_group(name: str) -> str:
@@ -1450,6 +1813,9 @@ def main() -> int:
     # ---------------------------------------- 6. training at full width
     launches.update(train_full_width(cfg, dev, smi))
 
+    # ------------------------------------------------- 7. learn -> AP
+    ap_launches = learn_to_ap(dev, smi)
+
     # ------------------------------------------------------- the result
     src = {"topk_peaks": ("improved_body_parts_torch/csrc/peaks.cu",
                           "improved_body_parts_tpu/ops/pallas_peaks.py:150"),
@@ -1463,13 +1829,16 @@ def main() -> int:
                          "improved_body_parts_tpu/ops/pallas_focal.py:98"),
            "focal_bwd": ("improved_body_parts_torch/csrc/focal.cu",
                          "improved_body_parts_tpu/ops/pallas_focal.py:120")}
-    # the main path of the decode kernels is the batcher's fused lane
-    # (its full-width run); phase 5's one batch is kept beside it
+    # ``launches`` are phase 7's learn->AP run (training, then the fused
+    # lane's evaluation of the trained checkpoint); the other paths'
+    # counts stand beside them
     by_path = {k: {"predict_decoded_batch": launches[k],
                    "batcher": batcher_launches[k]} for k in DECODE_KERNELS}
     by_path.update({k: {"train_epoch": launches[k]}
                     for k in ("focal_fwd", "focal_bwd")})
-    launches.update(batcher_launches)
+    for k, n in ap_launches.items():
+        by_path[k]["learn_to_ap"] = n
+    launches = ap_launches
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k],
                     launches_by_path=by_path[k],
@@ -1479,6 +1848,8 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=None)
                for k, r in results.items()]
     print(json.dumps({"kernels": kernels}, allow_nan=False))
+    print(f"[chip_smoke] every phase passed in "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

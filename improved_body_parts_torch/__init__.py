@@ -2,7 +2,8 @@
 
 The package mirrors the JAX package's module names (``config``,
 ``models``, ``ops``, ``infer``, ``data``, ``train``, ``serve``, ``obs``,
-``utils``) and keeps
+``utils``; its entry points, the JAX package's ``tools/``, are the
+modules of ``cli``) and keeps
 its public layouts (NHWC maps, ``(C, K)`` / ``(L, M)`` decode records),
 so each counterpart is easy to find and the tests compare like with
 like.  It imports ``torch`` and

@@ -1,7 +1,7 @@
 """Host input pipeline of the port: NumPy/cv2 copies of the JAX package's
-augmentation and GT synthesis, the HDF5 dataset and the synthetic
-fixture."""
-from .dataset import CocoPoseDataset, batches, convert_joints
+augmentation and GT synthesis, the HDF5 and in-memory datasets and the
+synthetic fixture."""
+from .dataset import CocoPoseDataset, MemoryDataset, batches, convert_joints
 from .heatmapper import Heatmapper
 from .transformer import IMAGE_NORM_SCALE, AugmentParams, Transformer
 
@@ -9,6 +9,7 @@ __all__ = [
     "AugmentParams",
     "CocoPoseDataset",
     "Heatmapper",
+    "MemoryDataset",
     "IMAGE_NORM_SCALE",
     "Transformer",
     "batches",

@@ -123,6 +123,33 @@ class CocoPoseDataset:
             self._file = None
 
 
+class MemoryDataset(CocoPoseDataset):
+    """The dataset over records held in memory instead of an HDF5 corpus
+    (``data.fixture.fixture_records``): each record is (img, mask_miss,
+    mask_all, COCO joints (n, 17, 3), objpos, scale_provided).  Sampling,
+    augmentation and GT are :class:`CocoPoseDataset`'s, so the same
+    records give the same samples as their HDF5 corpus."""
+
+    def __init__(self, records, config: Config, augment: bool = True,
+                 seed: int = 0):
+        self.h5_path = None
+        self.config = config
+        self.skeleton = config.skeleton
+        self.augment = augment
+        self.seed = seed
+        self.transformer = Transformer(self.skeleton)
+        self.heatmapper = Heatmapper(self.skeleton)
+        self._file = None
+        self.records = list(records)
+        self.keys = list(range(len(self.records)))
+
+    def read_raw(self, index: int):
+        img, mask_miss, mask_all, joints, objpos, scale = self.records[index]
+        return (img, mask_miss, mask_all,
+                convert_joints(np.asarray(joints), self.skeleton),
+                tuple(objpos), float(scale))
+
+
 def epoch_permutation(n: int, epoch: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng((seed, epoch)).permutation(n)
 

@@ -2,8 +2,10 @@
 
 The port's copy of ``improved_body_parts_tpu/data/fixture.py``
 (``synthetic_person``, ``draw_person``, ``_synth_image``,
-``build_fixture``; the COCO-format val/train set writers are not ported
-yet), so one seed writes the same records in both packages.
+``build_fixture`` and the COCO-format writers ``build_val_set`` and
+``build_coco_train_set``), so one seed writes the same records, images
+and annotation JSON in both packages; ``fixture_records`` gives
+``build_fixture``'s records in memory, for a host without h5py.
 
 Writes a tiny HDF5 file with the exact schema of the real corpus builder
 (see hdf5_corpus.py / reference data/coco_masks_hdf5.py): groups ``dataset`` /
@@ -13,11 +15,13 @@ non-trivial heatmaps.
 """
 from __future__ import annotations
 
+import json
 from typing import Tuple
 
 import numpy as np
 
-from .hdf5_corpus import write_record
+from ..obs.events import strict_dump, strict_dumps
+from .hdf5_corpus import NUM_COCO_PARTS, write_record
 
 # rough upright stick figure in a unit box: (x, y) per COCO part
 _UNIT_POSE = {
@@ -226,6 +230,38 @@ def _synth_image(rng: np.random.Generator, h: int, w: int,
     return img, persons, crowd_masks
 
 
+def _fixture_images(num_images: int, img_size: Tuple[int, int],
+                    people_per_image: int, image_size: int, seed: int,
+                    drawn: bool, crowd: bool, mask_extras: bool,
+                    hard: bool):
+    """Yield (img, mask_miss, mask_all, records) for each fixture image,
+    in the order :func:`build_fixture` writes them."""
+    from .hdf5_corpus import build_masks, iter_records
+
+    rng = np.random.default_rng(seed)
+    h, w = img_size
+    for image_index in range(num_images):
+        img_id = 1000 + image_index
+        img, persons, crowd_masks = _synth_image(
+            rng, h, w, people_per_image, image_size, drawn, crowd=crowd,
+            hard=hard)
+        person_masks = []
+        for p in persons:
+            m = np.zeros((h, w), np.uint8)
+            x0, y0, bw, bh = [int(v) for v in p["bbox"]]
+            m[max(y0, 0): y0 + bh, max(x0, 0): x0 + bw] = 1
+            person_masks.append(m)
+        mask_miss, mask_all = build_masks(
+            (h, w), person_masks, [p["num_keypoints"] for p in persons],
+            crowd_masks=crowd_masks)
+        if not mask_extras:
+            mask_miss = np.full((h, w), 255, np.uint8)
+        image_rec = {"width": w, "height": h}
+        yield img, mask_miss, mask_all, list(iter_records(
+            image_rec, img_id, image_index, persons, "SYNTH",
+            is_validation=False))
+
+
 def build_fixture(path: str, num_images: int = 4, img_size: Tuple[int, int]
                   = (240, 320), people_per_image: int = 2,
                   image_size: int = 512, seed: int = 0,
@@ -248,35 +284,195 @@ def build_fixture(path: str, num_images: int = 4, img_size: Tuple[int, int]
     """
     import h5py
 
-    from .hdf5_corpus import build_masks, iter_records
-
-    rng = np.random.default_rng(seed)
-    h, w = img_size
     count = 0
     with h5py.File(path, "w") as f:
         grp = f.create_group("dataset")
         img_grp = f.create_group("images")
         mask_grp = f.create_group("masks")
-        for image_index in range(num_images):
-            img_id = 1000 + image_index
-            img, persons, crowd_masks = _synth_image(
-                rng, h, w, people_per_image, image_size, drawn, crowd=crowd,
-                hard=hard)
-            person_masks = []
-            for p in persons:
-                m = np.zeros((h, w), np.uint8)
-                x0, y0, bw, bh = [int(v) for v in p["bbox"]]
-                m[max(y0, 0): y0 + bh, max(x0, 0): x0 + bw] = 1
-                person_masks.append(m)
-            mask_miss, mask_all = build_masks(
-                (h, w), person_masks, [p["num_keypoints"] for p in persons],
-                crowd_masks=crowd_masks)
-            if not mask_extras:
-                mask_miss = np.full((h, w), 255, np.uint8)
-            image_rec = {"width": w, "height": h}
-            for rec in iter_records(image_rec, img_id, image_index, persons,
-                                    "SYNTH", is_validation=False):
+        for img, mask_miss, mask_all, recs in _fixture_images(
+                num_images, img_size, people_per_image, image_size, seed,
+                drawn, crowd, mask_extras, hard):
+            for rec in recs:
                 write_record(grp, img_grp, mask_grp, rec, count, img,
                              mask_miss, mask_all)
                 count += 1
     return count
+
+
+def fixture_records(num_images: int = 4, img_size: Tuple[int, int]
+                    = (240, 320), people_per_image: int = 2,
+                    image_size: int = 512, seed: int = 0,
+                    drawn: bool = False, crowd: bool = False,
+                    mask_extras: bool = True, hard: bool = False) -> list:
+    """The records :func:`build_fixture` would write for the same
+    arguments, in its order, held in memory (no HDF5): each is (img,
+    mask_miss, mask_all, COCO joints (n, 17, 3), objpos, scale_provided),
+    the input of ``data.dataset.MemoryDataset``."""
+    out = []
+    for img, mask_miss, mask_all, recs in _fixture_images(
+            num_images, img_size, people_per_image, image_size, seed,
+            drawn, crowd, mask_extras, hard):
+        for rec in recs:
+            # the JSON round trip of the HDF5 path, so both give the
+            # same numbers
+            rec = json.loads(strict_dumps(rec))
+            out.append((img, mask_miss, mask_all,
+                        np.asarray(rec["joints"]), tuple(rec["objpos"][0]),
+                        float(rec["scale_provided"][0])))
+    return out
+
+
+def _write_coco_set(images_dir: str, anno_path: str, num_images: int,
+                    img_size: Tuple[int, int], people_per_image: int,
+                    image_size: int, seed: int, drawn: bool, crowd: bool,
+                    train_side: bool, hard: bool = False) -> int:
+    """Shared emitter behind :func:`build_val_set` /
+    :func:`build_coco_train_set` — one per-image loop so the visibility
+    recode, crowd-bbox extraction and JSON shape cannot drift between the
+    two surfaces.  The only policy differences:
+
+    - ``train_side=True`` writes segmentations (cycling polygon →
+      uncompressed RLE → compressed RLE so one corpus build exercises
+      every ``coco_masks`` decode path) and keeps unannotated people as
+      ``iscrowd=0, num_keypoints=0`` — real COCO's shape for people
+      lacking keypoint labels, which the corpus rules route into
+      mask_miss;
+    - ``train_side=False`` (eval side) writes no segmentations and marks
+      unannotated people ``iscrowd=1`` so COCOeval / the OKS proxy
+      IGNORES detections landing there (real COCO crowds' treatment);
+    - crowd-region ``area``: mask pixel count on the train side (real
+      COCO derives crowd area from the RLE) vs bbox area on the eval
+      side (the OKS proxy's ignore radius works from the bbox).
+
+    Returns the number of annotated (scored) persons.
+    """
+    import os
+
+    import cv2
+
+    from .coco_masks import rle_encode, rle_to_string
+
+    os.makedirs(images_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h, w = img_size
+    images, annotations = [], []
+    encodings = ("polygon", "rle", "crle")
+    ann_id = 0
+    n_scored = 0
+    for image_index in range(num_images):
+        img_id = 1 + image_index
+        img, persons, crowd_masks = _synth_image(
+            rng, h, w, people_per_image, image_size, drawn, crowd=crowd,
+            hard=hard)
+        name = f"{img_id:012d}.jpg"
+        cv2.imwrite(os.path.join(images_dir, name), img)
+        images.append({"id": img_id, "file_name": name,
+                       "width": w, "height": h})
+        for p in persons:
+            unannotated = p["num_keypoints"] == 0
+            kp = []
+            for x, y, v in p["joint"]:
+                coco_v = 0 if unannotated else {1: 2, 0: 1, 2: 0}[int(v)]
+                kp.extend([0.0, 0.0, 0] if unannotated
+                          else [float(x), float(y), coco_v])
+            ann_id += 1
+            n_scored += 0 if unannotated else 1
+            ann = {
+                "id": ann_id, "image_id": img_id, "category_id": 1,
+                "keypoints": kp, "num_keypoints": p["num_keypoints"],
+                "area": float(p["segment_area"]),
+                "bbox": [float(v) for v in p["bbox"]],
+                "iscrowd": (1 if unannotated and not train_side else 0)}
+            if train_side:
+                ann["segmentation"] = _rect_segmentation(
+                    p["bbox"], h, w, encodings[ann_id % len(encodings)])
+            annotations.append(ann)
+        for cm in crowd_masks:
+            ys, xs = np.nonzero(cm)
+            x0, y0 = float(xs.min()), float(ys.min())
+            bw, bh = float(xs.max() - x0 + 1), float(ys.max() - y0 + 1)
+            ann_id += 1
+            ann = {
+                "id": ann_id, "image_id": img_id, "category_id": 1,
+                "keypoints": [0.0, 0.0, 0] * NUM_COCO_PARTS,
+                "num_keypoints": 0,
+                "area": float(cm.sum()) if train_side else bw * bh,
+                "bbox": [x0, y0, bw, bh], "iscrowd": 1}
+            if train_side:
+                ann["segmentation"] = {
+                    "size": [h, w], "counts": rle_to_string(rle_encode(cm))}
+            annotations.append(ann)
+    with open(anno_path, "w") as f:
+        strict_dump({"images": images, "annotations": annotations,
+                     "categories": [{"id": 1, "name": "person"}]}, f)
+    return n_scored
+
+
+def build_val_set(images_dir: str, anno_path: str, num_images: int = 16,
+                  img_size: Tuple[int, int] = (240, 320),
+                  people_per_image: int = 2, image_size: int = 512,
+                  seed: int = 1, drawn: bool = True,
+                  crowd: bool = False, hard: bool = False) -> int:
+    """Held-out val set on disk: jpgs + a COCO-format keypoint JSON, the
+    exact inputs of ``tools/evaluate.py`` (reference: evaluate.py:585-622
+    reads COCO annotations + an image dir).  Returns the count of
+    NON-ignored person annotations.
+
+    Stored visibility (1=visible, 0=occluded, 2=unlabeled) is re-coded
+    back to COCO (2 / 1 / 0) for the annotations file.
+
+    ``crowd=True`` renders the same unannotated-people / crowd-box extras
+    as the training corpus and annotates their regions ``iscrowd=1`` with
+    zero keypoints — COCOeval (and the OKS proxy's ``k1 == 0`` bbox
+    fallback) then IGNORES detections landing there instead of counting
+    false positives, exactly real COCO's treatment of crowds.
+    """
+    return _write_coco_set(images_dir, anno_path, num_images, img_size,
+                           people_per_image, image_size, seed, drawn, crowd,
+                           train_side=False, hard=hard)
+
+
+def _rect_mask(bbox, h: int, w: int) -> np.ndarray:
+    x0, y0, bw, bh = [int(round(v)) for v in bbox]
+    m = np.zeros((h, w), np.uint8)
+    m[max(y0, 0): y0 + bh, max(x0, 0): x0 + bw] = 1
+    return m
+
+
+def _rect_segmentation(bbox, h: int, w: int, encoding: str):
+    """A rectangle in one of the three COCO segmentation encodings.
+
+    RLE variants encode the exact same pixel set as the fixture's HDF5
+    person masks; the polygon variant covers the rect with ``cv2.fillPoly``
+    inclusive-boundary semantics (see coco_masks.polygons_to_mask).
+    """
+    from .coco_masks import rle_encode, rle_to_string
+
+    if encoding == "polygon":
+        x0, y0, bw, bh = bbox
+        return [[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh]]
+    counts = rle_encode(_rect_mask(bbox, h, w))
+    if encoding == "rle":
+        return {"size": [h, w], "counts": counts}
+    assert encoding == "crle", encoding
+    return {"size": [h, w], "counts": rle_to_string(counts)}
+
+
+def build_coco_train_set(images_dir: str, anno_path: str,
+                         num_images: int = 8,
+                         img_size: Tuple[int, int] = (240, 320),
+                         people_per_image: int = 2, image_size: int = 512,
+                         seed: int = 0, drawn: bool = True,
+                         crowd: bool = False, hard: bool = False) -> int:
+    """Synthetic TRAIN-side COCO dataset on disk: jpgs + a
+    person_keypoints JSON **with segmentations** — the exact inputs of
+    ``tools/make_corpus.py`` (reference: data/coco_masks_hdf5.py:304-351
+    reads COCO annotations + an image dir), enabling the full COCO-format
+    journey (JSON+images → HDF5 → train → evaluate) without any COCO
+    download or pycocotools.  See :func:`_write_coco_set` for the
+    train-side annotation policy.  Returns the number of annotated
+    (scored) persons.
+    """
+    return _write_coco_set(images_dir, anno_path, num_images, img_size,
+                           people_per_image, image_size, seed, drawn, crowd,
+                           train_side=True, hard=hard)

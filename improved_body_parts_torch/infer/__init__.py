@@ -1,5 +1,6 @@
-"""Inference: the device lanes of the predictor, their host decode, and
-the pipelined and serving plumbing shared with ``serve``."""
+"""Inference: the device lanes of the predictor, their host decode, the
+pipelined and serving plumbing shared with ``serve``, and evaluation
+(COCOeval or the OKS evaluator)."""
 from .decode import (
     CompactOverflow,
     CompactResult,
@@ -16,6 +17,8 @@ from .decode import (
     find_people,
     subsets_to_keypoints,
 )
+from .evaluate import process_image, validation, validation_oks
+from .oks import evaluate_oks
 from .pipeline import compact_decode_fn, device_decode_fn, pipelined_inference
 from .predict import (
     COMPACT_M_FACTOR,
@@ -41,12 +44,16 @@ __all__ = [
     "device_decode_fn",
     "device_signals",
     "device_subset_candidate",
+    "evaluate_oks",
     "find_connections",
     "find_peaks",
     "find_people",
     "pad_right_down",
     "pipelined_inference",
+    "process_image",
     "subsets_to_keypoints",
     "trivial_grid",
     "upsample_cubic",
+    "validation",
+    "validation_oks",
 ]

@@ -57,12 +57,17 @@ class BatchNorm(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5)
+        # False while a rematerialised forward recomputes this layer
+        # (:class:`frozen_bn_stats`): the stats were updated once already
+        self.update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             dims = (0, 2, 3)
             n = x.numel() // x.shape[1]
@@ -74,6 +79,28 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)
         return y
+
+
+class frozen_bn_stats:
+    """Context in which every :class:`BatchNorm` of ``module`` normalises
+    as in train mode but leaves its running stats alone.  The recompute
+    context of a rematerialised forward (``torch.utils.checkpoint``'s
+    ``context_fn``): Flax's ``nn.remat`` updates the stats once, in the
+    forward pass, and so must the port.  A flag on the modules, not a
+    thread-local, since autograd may recompute on its own thread."""
+
+    def __init__(self, module: nn.Module):
+        self.bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+
+    def __enter__(self):
+        for bn in self.bns:
+            bn.update_stats = False
+        return self
+
+    def __exit__(self, *exc):
+        for bn in self.bns:
+            bn.update_stats = True
+        return False
 
 
 def same_padding(size: int, kernel: int, stride: int, dilation: int

@@ -15,20 +15,26 @@ parameters when ``config.train.bf16_compute`` (the Flax ``dtype=bf16,
 param_dtype=fp32`` split), fp32 on request.  ``build_model(train=True)``
 returns the model in train mode: BatchNorm normalises with batch
 statistics and updates its running averages (``models.layers.BatchNorm``),
-and the predictions carry gradients.  Only the ``imhn`` variant is ported;
+and the predictions carry gradients.  ``remat`` recomputes each hourglass
+in the backward pass (``torch.utils.checkpoint``, the Flax ``nn.remat``):
+the recomputation leaves BN's running stats alone, so they are updated
+once a step, as in Flax.  Only the ``imhn`` variant is ported;
 ``build_model`` raises ``NotImplementedError`` for the other five
 (ROADMAP queue).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..config import Config
-from .layers import Backbone, ConvBlock, Hourglass, SELayer, init_weights
+from .layers import (Backbone, ConvBlock, Hourglass, SELayer, frozen_bn_stats,
+                     init_weights)
 
 
 class Features(nn.Module):
@@ -80,10 +86,12 @@ class PoseNet(nn.Module):
     def __init__(self, nstack: int = 4, inp_dim: int = 256, oup_dim: int = 50,
                  increase: int = 128, hourglass_depth: int = 4,
                  cross_stack_residual: bool = True, se_reduction: int = 16,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         nscale = hourglass_depth + 1
         self.nstack = nstack
+        self.remat = remat
         self.cross_stack_residual = cross_stack_residual
         self.compute_dtype = compute_dtype
         self.backbone = Backbone(features=inp_dim)
@@ -111,7 +119,7 @@ class PoseNet(nn.Module):
             preds: List[List[torch.Tensor]] = []
             cache: List[Optional[torch.Tensor]] = [None] * len(self.outs[0])
             for i in range(self.nstack):
-                feats = self.hourglasses[i](x)
+                feats = self._hourglass(i, x)
                 if self.cross_stack_residual and i > 0:
                     feats = [f + c for f, c in zip(feats, cache)]
                 feats = self.features[i](feats)
@@ -127,6 +135,15 @@ class PoseNet(nn.Module):
                 preds.append(preds_instack)
         return preds
 
+    def _hourglass(self, i: int, x: torch.Tensor) -> List[torch.Tensor]:
+        hg = self.hourglasses[i]
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return hg(x)
+        return checkpoint(
+            hg, x, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                frozen_bn_stats(hg)))
+
 
 def build_model(config: Config, dtype: Optional[torch.dtype] = None,
                 device="cuda", seed: int = 0, train: bool = False
@@ -137,22 +154,19 @@ def build_model(config: Config, dtype: Optional[torch.dtype] = None,
     (:func:`models.layers.init_weights`), in eval mode unless ``train``.
     ``dtype`` is the compute type: bf16 when ``config.train.bf16_compute``,
     else fp32.  ``config.model.remat`` is ignored in eval mode (nothing is
-    kept for a backward pass) and not ported for training."""
+    kept for a backward pass)."""
     m = config.model
     if m.variant != "imhn":
         raise NotImplementedError(
             f"model variant {m.variant!r} is not ported yet; only 'imhn' is "
             "(ROADMAP.md, queue 1: the other five variants)")
-    if train and m.remat:
-        raise NotImplementedError(
-            "remat=True (per-stack rematerialisation) is not ported for "
-            "training (ROADMAP.md, queue 1); canonical trains without it")
     if dtype is None:
         dtype = torch.bfloat16 if config.train.bf16_compute else torch.float32
     kw = dict(nstack=m.nstack, inp_dim=m.inp_dim,
               oup_dim=config.skeleton.num_layers, increase=m.increase,
               hourglass_depth=m.hourglass_depth,
-              se_reduction=m.se_reduction, compute_dtype=dtype)
+              se_reduction=m.se_reduction, compute_dtype=dtype,
+              remat=m.remat)
     if str(device) == "meta":
         with torch.device("meta"):
             return PoseNet(**kw).train(train)

@@ -534,27 +534,26 @@ class DynamicBatcher:
                 item = inq.get(timeout=timeout)
             except queue.Empty:
                 item = None
-            if item is _STOP:
-                stop = True
-            elif item is not None and item is not _KICK:
-                if item.expired():
-                    # dead on arrival at the dispatcher: fail fast
-                    # BEFORE the request can occupy a bucket slot
-                    self._finish(item, error=DeadlineExceeded(
-                        "request deadline passed before dispatch"))
-                    continue
-                try:
-                    key = self.predictor.compact_lane_shape(item.image,
-                                                            self.params)
-                except Exception as e:  # noqa: BLE001 — a malformed
-                    # image must fail ITS future, never the dispatcher
-                    self._finish(item, error=e)
-                    continue
-                item.t_bucket = time.perf_counter()  # queue hop ends
-                bucket = pending.setdefault(key, [])
-                bucket.append(item)
-                if len(bucket) >= self.max_batch:
-                    self._dispatch(pending.pop(key), gen, fetchqs)
+            # bucket this request and every one already queued behind it
+            # before any flush decision: a dispatch holds this thread for
+            # its host work, and requests that queued meanwhile must
+            # coalesce, not meet their deadline one at a time.  Only what
+            # was queued when the drain began, so that a steady stream
+            # cannot hold the deadline checks off.
+            queued = inq.qsize()
+            while item is not None:
+                if item is _STOP:
+                    stop = True
+                    break
+                if item is not _KICK:
+                    self._bucket(item, pending, gen, fetchqs)
+                item = None
+                if queued > 0:
+                    queued -= 1
+                    try:
+                        item = inq.get_nowait()
+                    except queue.Empty:
+                        pass
             now = time.perf_counter()
             with self._in_flight_lock:
                 idle = (self.eager_idle_flush
@@ -569,6 +568,29 @@ class DynamicBatcher:
                     with self._in_flight_lock:
                         idle = (self.eager_idle_flush
                                 and min(self._in_flight) == 0)
+
+    def _bucket(self, item: _Request,
+                pending: Dict[Tuple[int, int], List[_Request]], gen: int,
+                fetchqs: "list[queue.SimpleQueue]") -> None:
+        """Put one request read off the queue into its shape bucket, and
+        flush the bucket if that filled it."""
+        if item.expired():
+            # dead on arrival at the dispatcher: fail fast BEFORE the
+            # request can occupy a bucket slot
+            self._finish(item, error=DeadlineExceeded(
+                "request deadline passed before dispatch"))
+            return
+        try:
+            key = self.predictor.compact_lane_shape(item.image, self.params)
+        except Exception as e:  # noqa: BLE001 — a malformed image must
+            # fail ITS future, never the dispatcher
+            self._finish(item, error=e)
+            return
+        item.t_bucket = time.perf_counter()  # queue hop ends
+        bucket = pending.setdefault(key, [])
+        bucket.append(item)
+        if len(bucket) >= self.max_batch:
+            self._dispatch(pending.pop(key), gen, fetchqs)
 
     def _dispatch(self, reqs: List[_Request], gen: int,
                   fetchqs: "list[queue.SimpleQueue]") -> None:

@@ -247,18 +247,15 @@ def test_request_deadline_fails_fast(warm_pred):
 
 
 def test_occupancy_accounting_two_buckets(warm_pred):
-    """3 size-B + 4 size-A requests, max_batch=4, deterministic flushes:
+    """4 size-A + 3 size-B requests, max_batch=4, deterministic flushes:
     bucket A flushes full (occupancy 4), bucket B on the deadline
-    (occupancy 3) — the histogram and mean must say exactly that.  (B
-    goes first: on the CPU the dispatcher runs a flush's whole lane
-    before it reads the next request, so requests queued behind a full
-    flush would outwait their deadline one by one.)"""
+    (occupancy 3) — the histogram and mean must say exactly that."""
     imgs = {s: _img(s) for s in (SIZE_A, SIZE_B)}
     with DynamicBatcher(warm_pred, max_batch=4, max_wait_ms=300,
                         use_native=False,
                         eager_idle_flush=False) as server:
-        futs = [server.submit(imgs[SIZE_B]) for _ in range(3)]
-        futs += [server.submit(imgs[SIZE_A]) for _ in range(4)]
+        futs = [server.submit(imgs[SIZE_A]) for _ in range(4)]
+        futs += [server.submit(imgs[SIZE_B]) for _ in range(3)]
         for f in futs:
             f.result(timeout=120)
         snap = server.metrics.snapshot()

@@ -410,10 +410,6 @@ def _jax_linear_state(jst):
 
 def test_unported_training_options_name_the_roadmap():
     cfg = _config(tconfig)
-    remat = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(remat, device="cpu", train=True)
     model = build_model(cfg, device="cpu", train=True)
     opt = tstate.make_optimizer(model, cfg,
                                 tsched.step_decay_schedule(cfg.train, SPE))
