@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA H100: the serve lane, training and
-the learn->AP loop.
+"""Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
+learn->AP loop and the accuracy tiers of inference.
 
     python3 chip_smoke.py
 
@@ -99,12 +99,44 @@ released before phase 6, so phase 6's peak memory is its own;
    loss curve, the APs, the device and the five kernels' launches, and
    fails unless the trained AP is at least 0.5, the untrained AP at most
    0.05, last/first loss at most 0.2, the two lanes' APs within 0.01 and
-   every kernel launched.
+   every kernel launched;
+8. accuracy tiers, on phase 7's last committed checkpoint and val set:
+   (a) the scale x rotation grids single-scale, scale_search (0.8, 1.0,
+   1.2), rotation_search (0, 30, -30) and their product, on the trained
+   ``synth_canonical`` built by ``serve.artifacts.checkpoint_predictor``:
+   for each grid, the fused and looped grid dispatches on every val
+   image in the compact and decode modes (``cli.tta_bench.ab_report``),
+   payloads equal bit for bit, 1 dispatch an image fused and entries + 1
+   looped, ms an image of each; the OKS AP of each grid on the compact
+   lane, and of the multi-scale grid on the fused decode lane with the
+   decode kernels' counters set to 0 just before and read just after
+   (each must have launched); the host full-map protocol
+   (``process_image`` with neither flag) on the multi-scale grid, its AP
+   and ``Predictor.predict``'s ms an image; how often each overflow
+   fallback was taken.  Gates: multi-scale AP >= 0.5, host protocol AP >=
+   0.5.  (b) the three decode kernels bit for bit against their plain
+   versions on the first val image's multi-scale mean maps, as the lane
+   decoded them, and on planted people at (1, 768, 1151, 50), the mean
+   grid of a 427x640 image at that scale grid and boxsize 640, whose
+   width is no multiple of 32 (valid = the whole map), each timed as in
+   phase 3.  (c) ``canonical`` (seeded init, boxsize 640) on one 427x640
+   image through the fused multi-scale grid and ``Predictor.predict``:
+   ms an image and peak device memory; ``predict_decoded_async`` with
+   the grid makes no synchronizing call (torch's sync debug mode set to
+   error around it: no read back to the host before ``resolve()``).  (d) the dtype matrix: the
+   trained checkpoint at fp32, bf16 and int8, the fused-lane AP on phase
+   7's 12 val images and on 48 of the same seed (the 12 and 36 more), the
+   stored bytes of each, and ``canonical``'s ``predict_decoded_batch``
+   imgs/s at batch 8 of 480x640 at each dtype.  Gates: the fp32 AP on the
+   12 equal to phase 7's, |AP(int8) - AP(bf16)| <= 0.01 on the 48 (on 24
+   people one OKS match moves AP by ~0.004), int8 bytes <= 0.35 x fp32.  A ``[8 accuracy tiers]`` summary line closes the phase.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
 in the fused-lane evaluation of its checkpoint; the other paths' counts
-stand beside them in ``launches_by_path``), the time every phase took,
+stand beside them in ``launches_by_path``, phase 8's multi-scale grid as
+``grid``; the decode kernels' times at phase 8's grid shape as
+``grid_shape_ms`` and ``grid_shape_device_ms``), the time every phase took,
 the ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
 no result.  Every number it prints is measured on the card in this run.
@@ -114,9 +146,11 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -141,6 +175,16 @@ BUCKET_SHAPES = ((1, HEIGHT, WIDTH, 853), (1, HEIGHT, 512, 480),
 # phase 7: CANONICAL_TRAIN.json's learn->AP protocol
 SYNTH_AP = dict(config="synth_canonical", train_images=32, val_images=12,
                 canvas=(288, 384), epochs=18, seed=0, val_seed=12345)
+# phase 8: the grids of the accuracy tiers, the mean grid of a 427x640
+# image at scale_search (0.8, 1.0, 1.2) and boxsize 640, and that image
+PHASE8_GRIDS = (("single_scale", {}),
+                ("multi_scale", {"scale_search": (0.8, 1.0, 1.2)}),
+                ("rotation_pm30", {"rotation_search": (0.0, 30.0, -30.0)}),
+                ("ms_rot_pm30", {"scale_search": (0.8, 1.0, 1.2),
+                                 "rotation_search": (0.0, 30.0, -30.0)}))
+GRID_SHAPE = (768, 1151)
+SERVE_IMAGE = (427, 640)
+DTYPE_VAL_IMAGES = 48     # the dtype matrix's gate: phase 7's val seed
 FOCAL_FWD_PASSES = ("focal_fwd",)
 FOCAL_BWD_PASSES = ("focal_bwd",)
 
@@ -195,7 +239,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
-              windows: int = 3):
+              windows: int = 3, required: bool = True):
     """Device time of ``fn()`` apart from the host work around it:
     ``torch.profiler`` over ``calls`` back-to-back calls, the CUDA time of
     each kernel named in ``kernels`` (the ``__global__`` names of one
@@ -204,7 +248,9 @@ def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
     of its window, so a marker kernel runs first; now and then it records
     no device activity at all in a window, so a window that misses a
     kernel is profiled again, up to ``windows`` times, and the
-    measurement fails only when every window missed it."""
+    measurement fails only when every window missed it -- or, with
+    ``required=False`` (a time the kernels line does not carry), gives
+    None for that kernel: not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -236,8 +282,12 @@ def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
         print(f"[device_ms] profiler window {window} of {windows} recorded "
               f"no launch of {', '.join(missed)} in {calls} calls",
               flush=True)
-    fail(f"device_ms: the profiler recorded no launch of {', '.join(missed)} "
-         f"in {windows} windows of {calls} calls")
+    if required:
+        fail(f"device_ms: the profiler recorded no launch of "
+             f"{', '.join(missed)} in {windows} windows of {calls} calls")
+    print(f"[device_ms] {', '.join(missed)}: not measured", flush=True)
+    return {k: None if k in missed else us[k] / seen[k] * launches_a_call
+            / 1e3 for k in kernels}
 
 
 def person_joints(sk, x0: float, y0: float, height: float) -> np.ndarray:
@@ -564,6 +614,30 @@ def hold_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
           f"{int(cands.valid.sum())} accepted candidates, {people} "
           "people; topk_peaks, limb_pair_stats and greedy_assemble "
           f"equal to their plain versions bit for bit [{smi}]")
+
+
+def lane_kwargs(sk, thre1, spec):
+    """``topk_peaks``', ``limb_pair_stats``' and ``greedy_assemble``'s
+    keyword arguments, and connect_ration, of a fused-lane spec."""
+    (thre2, mid_num, radius, topk, connect_ration), asm = spec
+    limbs = dict(limbs_from=tuple(a for a, _ in sk.limbs_conn),
+                 limbs_to=tuple(b for _, b in sk.limbs_conn))
+    return (dict(thre=thre1, k=topk, radius=radius),
+            dict(limbs, num_samples=mid_num, thre2=thre2),
+            dict(limbs, num_parts=sk.num_parts,
+                 **dict(zip(("p_max", "len_rate", "connection_tole",
+                             "remove_recon", "min_parts", "min_mean_score"),
+                            asm))),
+            connect_ration)
+
+
+def hold_lane_call(sk, call, label, smi, tag):
+    """:func:`hold_decode` on one captured ``Predictor.decode_maps`` call
+    (maps, valid_h, valid_w, thre1, spec), as the lane made it."""
+    maps, valid_h, valid_w, thre1, spec = call
+    hold_decode(sk, maps, valid_h, valid_w, *lane_kwargs(sk, thre1, spec),
+                f"{label} {tuple(maps.shape)}, valid "
+                f"{int(valid_h[0])}x{int(valid_w[0])}", smi, tag=tag)
 
 
 def bucket_cases(sk, dev, params, kw_pk, kw_st, smi):
@@ -973,7 +1047,7 @@ def first_calls(fn, n: int, store: list):
     return wrapper
 
 
-def learn_to_ap(dev, smi):
+def learn_to_ap(dev, smi, work):
     """Phase 7: the learn->AP protocol of ``cli.synth_ap`` at
     ``CANONICAL_TRAIN.json``'s settings, in this process (the card
     machine has no h5py, so the drawn records stay in memory:
@@ -987,11 +1061,11 @@ def learn_to_ap(dev, smi):
     ``cli.synth_ap.save_fresh_checkpoint``.  The focal kernels are then
     held to their plain versions on the first training step's own
     inputs, and the decode kernels on the first val image's maps.
+    Everything is written under ``work``, which the caller removes.
     Returns the five kernels' launches in the training run and the
-    fused-lane evaluation."""
+    fused-lane evaluation, and what phase 8 reuses: the last committed
+    checkpoint, the val set and the network's input size."""
     import dataclasses
-    import shutil
-    import tempfile
 
     import cv2
     import torch
@@ -1045,7 +1119,6 @@ def learn_to_ap(dev, smi):
 
     t_phase = time.perf_counter()
     epochs = SYNTH_AP["epochs"]
-    work = tempfile.mkdtemp(prefix="chip_smoke_synth_ap_")
     ckpt_dir = os.path.join(work, "ckpt")
     cfg = get_config(SYNTH_AP["config"])
     # cli.synth_ap's train flags: --print-freq 20; the last two epochs
@@ -1066,199 +1139,528 @@ def learn_to_ap(dev, smi):
             held[epoch] = digests(state)
         return path
 
+    records = fixture_records(
+        num_images=SYNTH_AP["train_images"],
+        img_size=SYNTH_AP["canvas"], people_per_image=2,
+        image_size=net, seed=SYNTH_AP["seed"], drawn=True)
+    train_set = MemoryDataset(records, cfg, augment=True,
+                              seed=SYNTH_AP["seed"])
+    val_dir = os.path.join(work, "val")
+    anno = os.path.join(work, "person_keypoints_synth.json")
+    n_val = build_val_set(val_dir, anno,
+                          num_images=SYNTH_AP["val_images"],
+                          img_size=SYNTH_AP["canvas"], people_per_image=2,
+                          image_size=net, seed=SYNTH_AP["val_seed"],
+                          drawn=True)
+    bs = tr.batch_size_per_device
+    spe = max(len(train_set) // bs, 1)
+    print(f"[7 learn->AP] {SYNTH_AP['config']}: {len(records)} drawn "
+          f"training records of {SYNTH_AP['train_images']} images "
+          f"{SYNTH_AP['canvas'][0]}x{SYNTH_AP['canvas'][1]}, "
+          f"{SYNTH_AP['val_images']} held-out val images "
+          f"({n_val} persons), batch {bs} at {net}x{sk.width}, "
+          f"{spe} steps an epoch x {epochs} epochs; set up "
+          f"in {time.perf_counter() - t_phase:.1f} s")
+    log = []
+    reset()
+    CheckpointManager.save = save_and_digest
+    # one training step's five focal calls, as the loss makes them
+    losses.focal_l2_fused = first_calls(focal_l2_fused, 5, focal_calls)
+    t0 = time.perf_counter()
     try:
-        records = fixture_records(
-            num_images=SYNTH_AP["train_images"],
-            img_size=SYNTH_AP["canvas"], people_per_image=2,
-            image_size=net, seed=SYNTH_AP["seed"], drawn=True)
-        train_set = MemoryDataset(records, cfg, augment=True,
-                                  seed=SYNTH_AP["seed"])
-        val_dir = os.path.join(work, "val")
-        anno = os.path.join(work, "person_keypoints_synth.json")
-        n_val = build_val_set(val_dir, anno,
-                              num_images=SYNTH_AP["val_images"],
-                              img_size=SYNTH_AP["canvas"], people_per_image=2,
-                              image_size=net, seed=SYNTH_AP["val_seed"],
-                              drawn=True)
-        bs = tr.batch_size_per_device
-        spe = max(len(train_set) // bs, 1)
-        print(f"[7 learn->AP] {SYNTH_AP['config']}: {len(records)} drawn "
-              f"training records of {SYNTH_AP['train_images']} images "
-              f"{SYNTH_AP['canvas'][0]}x{SYNTH_AP['canvas'][1]}, "
-              f"{SYNTH_AP['val_images']} held-out val images "
-              f"({n_val} persons), batch {bs} at {net}x{sk.width}, "
-              f"{spe} steps an epoch x {epochs} epochs; set up "
-              f"in {time.perf_counter() - t_phase:.1f} s")
-        log = []
-        reset()
-        CheckpointManager.save = save_and_digest
-        # one training step's five focal calls, as the loss makes them
-        losses.focal_l2_fused = first_calls(focal_l2_fused, 5, focal_calls)
-        t0 = time.perf_counter()
-        try:
-            state, report = train(cfg, train_set, epochs, device=dev,
-                                  seed=SYNTH_AP["seed"], log_fn=log.append)
-        finally:
-            CheckpointManager.save = manager_save
-            losses.focal_l2_fused = focal_l2_fused
-        fit_s = time.perf_counter() - t0
-        train_launches = kernel_launches()
-        model = state.model
-        n_params = sum(p.numel() for p in model.parameters())
-        check(n_params == 128_998_760 and model.remat,
-              f"synth_canonical: {n_params} parameters, remat "
-              f"{model.remat}")
-        curve = epoch_losses(ckpt_dir)
-        steps = report["steps"]
-        check(steps == spe * epochs and state.step == steps,
-              f"learn->AP: {steps} steps, state step {state.step}")
-        check(len(curve) == epochs and all(np.isfinite(curve)),
-              f"learn->AP: losses {curve}")
-        ratio = curve[-1] / curve[0]
-        blocked, written = report["save_blocked_ms"], report["save_write_ms"]
-        nbytes = sum(t.numel() * t.element_size() for t in
-                     list(model.state_dict().values())
-                     + state.optimizer.momentum)
-        print(f"[7 learn->AP] {n_params} parameters (remat, bf16 autocast); "
-              f"{steps} steps: median step {report['step_ms_median']:.2f} ms "
-              f"(CUDA events around each step), "
-              f"{report['train_imgs_per_s']:.2f} train imgs/s (host clock "
-              f"over the epochs' batch loops), train {fit_s:.1f} s wall "
-              f"[{smi}]")
-        print(f"[7 learn->AP] CheckpointManager.save, {len(blocked)} saves "
-              f"of a {nbytes / 1e9:.3f} GB state (fp32 parameters, BN stats "
-              f"and momentum): blocked median {statistics.median(blocked):.2f}"
-              f" ms (max {max(blocked):.2f}; the snapshot into pinned host "
-              f"buffers, the first save allocates them), writer median "
-              f"{statistics.median(written):.2f} ms (max {max(written):.2f}; "
-              f"torch.save + commit, on its thread); "
-              f"{sum(n.startswith('epoch_') for n in os.listdir(ckpt_dir))}"
-              f" checkpoints retained "
-              f"(keep_last_n 2 + the best) [{smi}]")
-        print(f"[7 learn->AP] train loss first {curve[0]:.4f} -> last "
-              f"{curve[-1]:.4f} (ratio {ratio:.4f}); curve "
-              + ", ".join(f"{x:.3f}" for x in curve))
-
-        # the save that had a whole epoch of in-place steps after it: its
-        # checkpoint holds the state as it was when save() returned
-        path = os.path.join(ckpt_dir, f"epoch_{held_epoch}")
-        payload = restore_checkpoint(path)
-        check(held_epoch in held and (
-            state_digest(payload["model"]),
-            state_digest(payload["optimizer"]["momentum"]))
-            == held[held_epoch],
-            f"learn->AP: {path} differs from the state as it was when its "
-            f"save returned, before epoch {held_epoch + 1}'s {spe} in-place "
-            "steps (the snapshot did not own its copy)")
-        del payload
-        print(f"[7 learn->AP] epoch_{held_epoch}: its state_dict and momentum "
-              f"have the SHA-256 they had when CheckpointManager.save "
-              f"returned, after epoch {held_epoch + 1}'s {spe} in-place "
-              "steps ran during its write")
-
-        # the last committed checkpoint in a fresh model, as the evaluate
-        # CLI loads it; the trained run's own model beside it
-        latest = latest_checkpoint(ckpt_dir)
-        check(latest is not None and latest.endswith(f"epoch_{epochs - 1}"),
-              f"learn->AP: latest committed checkpoint {latest}")
-        restored = load_predictor(SYNTH_AP["config"], latest, device=dev,
-                                  boxsize=net)
-        check(state_digest(restored.model.state_dict())
-              == state_digest(model.state_dict()),
-              "learn->AP: the restored state_dict differs from the "
-              "trained run's")
-        model.eval()
-        own = Predictor(model, sk,
-                        model_params=InferenceModelParams(boxsize=net),
-                        device=dev)
-        image = cv2.imread(os.path.join(val_dir, "000000000001.jpg"))
-        mine, theirs = (own.predict_decoded(image),
-                        restored.predict_decoded(image))
-        check(same_payload(mine, theirs), "learn->AP: the restored "
-              "checkpoint's fused-lane payload on val image 1 differs from "
-              "the trained run's own")
-        print(f"[7 learn->AP] {latest}: restored into a fresh model, its "
-              f"state_dict has the trained run's SHA-256 and its fused-lane "
-              f"payload on val image 1 equals the trained run's field for "
-              f"field ({mine.n_people} people, ok {mine.ok})")
-        del own
-
-        kw = dict(use_native=True, results_dir=os.path.join(work, "results"))
-        reset()
-        # the first val image's ensembled maps, as the lane decodes them
-        restored.decode_maps = first_calls(restored.decode_maps, 1,
-                                           lane_calls)
-        t0 = time.perf_counter()
-        ap_device = validation_oks(restored, anno, val_dir,
-                                   device_decode=True,
-                                   dump_name="synth_trained", **kw)
-        eval_s = time.perf_counter() - t0
-        eval_launches = kernel_launches()
-        del restored.decode_maps
-        ap_compact = validation_oks(restored, anno, val_dir, compact=True,
-                                    dump_name="synth_trained_compact", **kw)
-        fresh = load_predictor(
-            SYNTH_AP["config"],
-            save_fresh_checkpoint(SYNTH_AP["config"],
-                                  os.path.join(work, "ckpt_fresh"),
-                                  SYNTH_AP["seed"]),
-            device=dev, boxsize=net)
-        ap_fresh = validation_oks(fresh, anno, val_dir, device_decode=True,
-                                  dump_name="synth_fresh", **kw)
-        print(f"[7 learn->AP] OKS AP on the held-out val set: trained "
-              f"{ap_device['AP']:.4f} on the fused lane (AP50 "
-              f"{ap_device['AP50']:.4f}, AR {ap_device['AR']:.4f}; "
-              f"{SYNTH_AP['val_images']} images in {eval_s:.2f} s), "
-              f"{ap_compact['AP']:.4f} on the compact lane; untrained "
-              f"{ap_fresh['AP']:.4f} [{smi}]")
-        launches = {**{k: train_launches[k] for k in ("focal_fwd",
-                                                       "focal_bwd")},
-                    **{k: eval_launches[k] for k in DECODE_KERNELS}}
-        print(f"[7 learn->AP] device {torch.cuda.get_device_name(dev)} "
-              f"({dev.type}); kernel launches: training {train_launches}, "
-              f"the trained checkpoint's fused-lane evaluation "
-              f"{eval_launches}")
-
-        # every kernel against its plain version at this phase's shapes,
-        # after the counts were read
-        check(len(focal_calls) == 5 and len(lane_calls) == 1,
-              f"learn->AP: captured {len(focal_calls)} focal calls and "
-              f"{len(lane_calls)} lane decodes")
-        hold_focal(focal_calls,
-                   torch.tensor(tr.nstack_weight, device=dev) * 0.25,
-                   "the first training step's inputs", tag="[7 learn->AP]")
-        maps, valid_h, valid_w, thre1, spec = lane_calls[0]
-        (thre2, mid_num, radius, topk, connect_ration), asm = spec
-        limbs = dict(limbs_from=tuple(a for a, _ in sk.limbs_conn),
-                     limbs_to=tuple(b for _, b in sk.limbs_conn))
-        hold_decode(
-            sk, maps, valid_h, valid_w,
-            dict(thre=thre1, k=topk, radius=radius),
-            dict(limbs, num_samples=mid_num, thre2=thre2),
-            dict(limbs, num_parts=sk.num_parts,
-                 **dict(zip(("p_max", "len_rate", "connection_tole",
-                             "remove_recon", "min_parts", "min_mean_score"),
-                            asm))),
-            connect_ration,
-            f"the first val image's maps {tuple(maps.shape)}, valid "
-            f"{int(valid_h[0])}x{int(valid_w[0])}", smi,
-            tag="[7 learn->AP]")
-
-        for kname, n in launches.items():
-            check(n > 0, f"learn->AP: {kname} never launched")
-        check(ap_device["AP"] >= 0.5,
-              f"learn->AP: trained AP {ap_device['AP']:.4f} < 0.5")
-        check(ap_fresh["AP"] <= 0.05,
-              f"learn->AP: untrained AP {ap_fresh['AP']:.4f} > 0.05")
-        check(ratio <= 0.2, f"learn->AP: last/first loss {ratio:.4f} > 0.2")
-        check(abs(ap_compact["AP"] - ap_device["AP"]) <= 0.01,
-              f"learn->AP: compact AP {ap_compact['AP']:.4f} and fused AP "
-              f"{ap_device['AP']:.4f} differ by more than 0.01")
-        print(f"[7 learn->AP] phase took "
-              f"{time.perf_counter() - t_phase:.1f} s")
-        return launches
+        state, report = train(cfg, train_set, epochs, device=dev,
+                              seed=SYNTH_AP["seed"], log_fn=log.append)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        CheckpointManager.save = manager_save
+        losses.focal_l2_fused = focal_l2_fused
+    fit_s = time.perf_counter() - t0
+    train_launches = kernel_launches()
+    model = state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 128_998_760 and model.remat,
+          f"synth_canonical: {n_params} parameters, remat "
+          f"{model.remat}")
+    curve = epoch_losses(ckpt_dir)
+    steps = report["steps"]
+    check(steps == spe * epochs and state.step == steps,
+          f"learn->AP: {steps} steps, state step {state.step}")
+    check(len(curve) == epochs and all(np.isfinite(curve)),
+          f"learn->AP: losses {curve}")
+    ratio = curve[-1] / curve[0]
+    blocked, written = report["save_blocked_ms"], report["save_write_ms"]
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 list(model.state_dict().values())
+                 + state.optimizer.momentum)
+    print(f"[7 learn->AP] {n_params} parameters (remat, bf16 autocast); "
+          f"{steps} steps: median step {report['step_ms_median']:.2f} ms "
+          f"(CUDA events around each step), "
+          f"{report['train_imgs_per_s']:.2f} train imgs/s (host clock "
+          f"over the epochs' batch loops), train {fit_s:.1f} s wall "
+          f"[{smi}]")
+    print(f"[7 learn->AP] CheckpointManager.save, {len(blocked)} saves "
+          f"of a {nbytes / 1e9:.3f} GB state (fp32 parameters, BN stats "
+          f"and momentum): blocked median {statistics.median(blocked):.2f}"
+          f" ms (max {max(blocked):.2f}; the snapshot into pinned host "
+          f"buffers, the first save allocates them), writer median "
+          f"{statistics.median(written):.2f} ms (max {max(written):.2f}; "
+          f"torch.save + commit, on its thread); "
+          f"{sum(n.startswith('epoch_') for n in os.listdir(ckpt_dir))}"
+          f" checkpoints retained "
+          f"(keep_last_n 2 + the best) [{smi}]")
+    print(f"[7 learn->AP] train loss first {curve[0]:.4f} -> last "
+          f"{curve[-1]:.4f} (ratio {ratio:.4f}); curve "
+          + ", ".join(f"{x:.3f}" for x in curve))
+
+    # the save that had a whole epoch of in-place steps after it: its
+    # checkpoint holds the state as it was when save() returned
+    path = os.path.join(ckpt_dir, f"epoch_{held_epoch}")
+    payload = restore_checkpoint(path)
+    check(held_epoch in held and (
+        state_digest(payload["model"]),
+        state_digest(payload["optimizer"]["momentum"]))
+        == held[held_epoch],
+        f"learn->AP: {path} differs from the state as it was when its "
+        f"save returned, before epoch {held_epoch + 1}'s {spe} in-place "
+        "steps (the snapshot did not own its copy)")
+    del payload
+    print(f"[7 learn->AP] epoch_{held_epoch}: its state_dict and momentum "
+          f"have the SHA-256 they had when CheckpointManager.save "
+          f"returned, after epoch {held_epoch + 1}'s {spe} in-place "
+          "steps ran during its write")
+
+    # the last committed checkpoint in a fresh model, as the evaluate
+    # CLI loads it; the trained run's own model beside it
+    latest = latest_checkpoint(ckpt_dir)
+    check(latest is not None and latest.endswith(f"epoch_{epochs - 1}"),
+          f"learn->AP: latest committed checkpoint {latest}")
+    restored = load_predictor(SYNTH_AP["config"], latest, device=dev,
+                              boxsize=net, params_dtype="fp32")
+    check(state_digest(restored.model.state_dict())
+          == state_digest(model.state_dict()),
+          "learn->AP: the restored state_dict differs from the "
+          "trained run's")
+    model.eval()
+    own = Predictor(model, sk,
+                    model_params=InferenceModelParams(boxsize=net),
+                    device=dev)
+    image = cv2.imread(os.path.join(val_dir, "000000000001.jpg"))
+    mine, theirs = (own.predict_decoded(image),
+                    restored.predict_decoded(image))
+    check(same_payload(mine, theirs), "learn->AP: the restored "
+          "checkpoint's fused-lane payload on val image 1 differs from "
+          "the trained run's own")
+    print(f"[7 learn->AP] {latest}: restored into a fresh model, its "
+          f"state_dict has the trained run's SHA-256 and its fused-lane "
+          f"payload on val image 1 equals the trained run's field for "
+          f"field ({mine.n_people} people, ok {mine.ok})")
+    del own
+
+    kw = dict(use_native=True, results_dir=os.path.join(work, "results"))
+    reset()
+    # the first val image's ensembled maps, as the lane decodes them
+    restored.decode_maps = first_calls(restored.decode_maps, 1,
+                                       lane_calls)
+    t0 = time.perf_counter()
+    ap_device = validation_oks(restored, anno, val_dir,
+                               device_decode=True,
+                               dump_name="synth_trained", **kw)
+    eval_s = time.perf_counter() - t0
+    eval_launches = kernel_launches()
+    del restored.decode_maps
+    ap_compact = validation_oks(restored, anno, val_dir, compact=True,
+                                dump_name="synth_trained_compact", **kw)
+    fresh = load_predictor(
+        SYNTH_AP["config"],
+        save_fresh_checkpoint(SYNTH_AP["config"],
+                              os.path.join(work, "ckpt_fresh"),
+                              SYNTH_AP["seed"]),
+        device=dev, boxsize=net, params_dtype="fp32")
+    ap_fresh = validation_oks(fresh, anno, val_dir, device_decode=True,
+                              dump_name="synth_fresh", **kw)
+    print(f"[7 learn->AP] OKS AP on the held-out val set: trained "
+          f"{ap_device['AP']:.4f} on the fused lane (AP50 "
+          f"{ap_device['AP50']:.4f}, AR {ap_device['AR']:.4f}; "
+          f"{SYNTH_AP['val_images']} images in {eval_s:.2f} s), "
+          f"{ap_compact['AP']:.4f} on the compact lane; untrained "
+          f"{ap_fresh['AP']:.4f} [{smi}]")
+    launches = {**{k: train_launches[k] for k in ("focal_fwd",
+                                                   "focal_bwd")},
+                **{k: eval_launches[k] for k in DECODE_KERNELS}}
+    print(f"[7 learn->AP] device {torch.cuda.get_device_name(dev)} "
+          f"({dev.type}); kernel launches: training {train_launches}, "
+          f"the trained checkpoint's fused-lane evaluation "
+          f"{eval_launches}")
+
+    # every kernel against its plain version at this phase's shapes,
+    # after the counts were read
+    check(len(focal_calls) == 5 and len(lane_calls) == 1,
+          f"learn->AP: captured {len(focal_calls)} focal calls and "
+          f"{len(lane_calls)} lane decodes")
+    hold_focal(focal_calls,
+               torch.tensor(tr.nstack_weight, device=dev) * 0.25,
+               "the first training step's inputs", tag="[7 learn->AP]")
+    hold_lane_call(sk, lane_calls[0], "the first val image's maps", smi,
+                   tag="[7 learn->AP]")
+
+    for kname, n in launches.items():
+        check(n > 0, f"learn->AP: {kname} never launched")
+    check(ap_device["AP"] >= 0.5,
+          f"learn->AP: trained AP {ap_device['AP']:.4f} < 0.5")
+    check(ap_fresh["AP"] <= 0.05,
+          f"learn->AP: untrained AP {ap_fresh['AP']:.4f} > 0.05")
+    check(ratio <= 0.2, f"learn->AP: last/first loss {ratio:.4f} > 0.2")
+    check(abs(ap_compact["AP"] - ap_device["AP"]) <= 0.01,
+          f"learn->AP: compact AP {ap_compact['AP']:.4f} and fused AP "
+          f"{ap_device['AP']:.4f} differ by more than 0.01")
+    print(f"[7 learn->AP] phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(checkpoint=latest, anno=anno, val_dir=val_dir,
+                          net=net, ap_fused=ap_device["AP"])
+
+
+def time_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
+                connect_ration):
+    """Wrapper-call ms (events, median of 20) and device ms (profiler)
+    of the three decode kernels on one batch of maps, as phase 3 times
+    them: {kernel: (ms, device_ms)}; a device time the profiler did not
+    record in any window is None (not measured)."""
+    from improved_body_parts_torch.ops import cuda_assembly, cuda_peaks
+    from improved_body_parts_torch.ops.peaks import (
+        PairStats,
+        TopKPeaks,
+        limb_topk_from_stats,
+    )
+
+    kp = maps[..., sk.heat_start:sk.heat_start + sk.num_parts]
+    paf = maps[..., :sk.paf_layers]
+    pk = cuda_peaks.topk_peaks_plain(kp, valid_h, valid_w, **kw_pk)
+    st = cuda_peaks.limb_pair_stats_plain(paf, pk[2], pk[3], **kw_st)
+    peaks = TopKPeaks(*pk)
+    cands = limb_topk_from_stats(
+        PairStats(*st), peaks, valid_h, limbs_from=kw_asm["limbs_from"],
+        limbs_to=kw_asm["limbs_to"], connect_ration=connect_ration,
+        m_cap=2 * kw_pk["k"])
+    runs = {"topk_peaks": (lambda: cuda_peaks.topk_peaks_kernel(
+                kp, valid_h, valid_w, **kw_pk), PEAKS_PASSES),
+            "limb_pair_stats": (lambda: cuda_peaks.limb_pair_stats_kernel(
+                paf, pk[2], pk[3], **kw_st), LIMBS_PASSES),
+            "greedy_assemble": (lambda: cuda_assembly.greedy_assemble_kernel(
+                peaks, cands, **kw_asm), ASSEMBLY_PASSES)}
+    out = {}
+    for k, (fn, passes) in runs.items():
+        dev = device_ms(fn, passes, required=False)
+        out[k] = (cuda_ms(fn, 20), None if None in dev.values()
+                  else sum(dev.values()))
+    return out
+
+
+def count_calls(counts, key, fn):
+    """``fn`` wrapped to add one to ``counts[key]`` at each call."""
+    def wrapper(*args, **kwargs):
+        counts[key] += 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def host_ms(fn, calls: int = 3) -> float:
+    """Median host-clock ms of ``fn()``, a call that ends in its fetch."""
+    import torch
+
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def accuracy_tiers(dev, smi, ctx):
+    """Phase 8: the accuracy tiers of inference on the card, after phase
+    7 and on its trained checkpoint and val set (``ctx``).
+
+    (a) the scale x rotation grid (:data:`PHASE8_GRIDS`) on the trained
+    ``synth_canonical``, built by ``serve.artifacts.checkpoint_predictor``
+    at fp32: per grid, ``cli.tta_bench.ab_report`` runs the fused and the
+    looped grid on every val image in the compact and the decode mode
+    (payloads equal bit for bit, 1 dispatch an image fused, entries + 1
+    looped; one timed round of the compact mode), and ``validation_oks``
+    scores the grid on
+    the compact lane; the multi-scale grid also on the fused decode lane,
+    with the decode kernels' counters set to 0 just before and read just
+    after (the ``grid`` launches of the kernels line), its first image's
+    mean maps captured; and the host full-map protocol (neither flag) on
+    the multi-scale grid.  The compact lanes' overflow fallbacks
+    (``predict_fast`` for one scale, ``Predictor.predict`` for a grid)
+    are counted.  Gates: multi-scale AP >= 0.5, host protocol AP >= 0.5.
+    (b) the decode kernels against their plain versions, bit for bit, on
+    the captured mean maps and on planted people at (1, 768, 1151, 50)
+    (:data:`GRID_SHAPE`, valid = the whole map), timed as in phase 3.
+    (c) ``canonical`` (seeded init, boxsize 640) on one 427x640 image:
+    the fused multi-scale grid (a 768x1151 mean grid) and
+    ``Predictor.predict``, ms an image and peak memory;
+    ``predict_decoded_async`` with the grid must make no synchronizing
+    call (torch's sync debug mode set to error around it).
+    (d) the dtype matrix: the trained checkpoint through
+    ``checkpoint_predictor`` at fp32, bf16 and int8, the fused-lane AP
+    of each, the stored bytes of each model's parameters and buffers,
+    and ``canonical``'s ``predict_decoded_batch`` imgs/s at batch 8 of
+    480x640 at each dtype; the APs on phase 7's 12 val images and on
+    :data:`DTYPE_VAL_IMAGES` images of the same seed (the first 12 are
+    phase 7's).  Gates: fp32 AP on the 12 equal to phase 7's,
+    |AP(int8) - AP(bf16)| <= 0.01 on the 48, int8 bytes <= 0.35 x fp32.
+    Returns the decode kernels' launches on the multi-scale grid."""
+    import dataclasses
+
+    import cv2
+    import torch
+
+    from improved_body_parts_torch.cli.tta_bench import ab_report
+    from improved_body_parts_torch.config import (
+        default_inference_params,
+        get_config,
+    )
+    from improved_body_parts_torch.data.fixture import build_val_set
+    from improved_body_parts_torch.infer.evaluate import validation_oks
+    from improved_body_parts_torch.infer.resize import upsample_cubic
+    from improved_body_parts_torch.serve.artifacts import (
+        checkpoint_predictor,
+    )
+    from improved_body_parts_torch.utils.precision import storage_bytes
+
+    t_phase = time.perf_counter()
+    tag = "[8 accuracy tiers]"
+    base, _ = default_inference_params()
+    grids = {name: dataclasses.replace(base, **over)
+             for name, over in PHASE8_GRIDS}
+    ms = grids["multi_scale"]
+    name_cfg, ckpt, net = SYNTH_AP["config"], ctx["checkpoint"], ctx["net"]
+    sk = get_config(name_cfg).skeleton
+    val_dir, anno = ctx["val_dir"], ctx["anno"]
+    images = [cv2.imread(os.path.join(val_dir, f))
+              for f in sorted(os.listdir(val_dir))]
+    kw = dict(use_native=True,
+              results_dir=os.path.join(os.path.dirname(val_dir), "results"))
+
+    # ------------------------------------- (a) the grid, trained model
+    pred = checkpoint_predictor(name_cfg, ckpt, "fp32", boxsize=net,
+                                device=dev)
+    fallbacks = {"predict_fast": 0, "predict": 0}
+    pred.predict_fast = count_calls(fallbacks, "predict_fast",
+                                    pred.predict_fast)
+    pred.predict = count_calls(fallbacks, "predict", pred.predict)
+    aps, lane_ms = {}, {}
+    for name, prm in grids.items():
+        n_entries = len(prm.scale_search) * len(prm.rotation_search)
+        # one timed round of the compact mode; the decode mode's ms are
+        # its parity pass's (the compact rounds warmed the forwards)
+        for mode, rounds in (("compact", 1), ("decode", 0)):
+            rep = ab_report(pred, images, prm, rounds=rounds, mode=mode)
+            bad = [i for i, ok in enumerate(rep["payload_equal_per_image"])
+                   if not ok]
+            check(not bad, f"grid {name} ({mode}): the fused and looped "
+                  f"payloads differ on val images {bad}")
+            check(rep["ok"], f"grid {name} ({mode}): dispatches an image "
+                  f"fused {rep['fused_dispatches_per_image']}, looped "
+                  f"{rep['looped_dispatches_per_image']} (want 1 and "
+                  f"{n_entries + 1})")
+            lane_ms[name, mode] = (rep["fused_ms_per_image"],
+                                   rep["looped_ms_per_image"])
+        aps[name] = validation_oks(pred, anno, val_dir, params=prm,
+                                   compact=True, dump_name=f"grid_{name}",
+                                   **kw)["AP"]
+        print(f"{tag} grid {name} ({n_entries} entries): fused = looped "
+              f"bit for bit on {len(images)} val images in the compact and "
+              f"decode modes, 1 and {n_entries + 1} dispatches an image; "
+              f"ms an image (host clock, row fetched) fused/looped: "
+              f"compact {lane_ms[name, 'compact'][0]:.2f}/"
+              f"{lane_ms[name, 'compact'][1]:.2f}, decode (its parity pass) "
+              f"{lane_ms[name, 'decode'][0]:.2f}/"
+              f"{lane_ms[name, 'decode'][1]:.2f}; OKS AP on the compact "
+              f"lane {aps[name]:.4f} [{smi}]")
+    taken = dict(fallbacks)
+
+    lane_calls = []
+    decode_maps = pred.decode_maps
+    pred.decode_maps = first_calls(decode_maps, 1, lane_calls)
+    reset_launches()
+    ap_ms_decode = validation_oks(pred, anno, val_dir, params=ms,
+                                  device_decode=True,
+                                  dump_name="grid_ms_decode", **kw)["AP"]
+    grid_launches = read_launches()
+    pred.decode_maps = decode_maps
+    del pred.predict_fast, pred.predict
+    print(f"{tag} multi-scale grid on the fused decode lane: AP "
+          f"{ap_ms_decode:.4f}; kernel launches {grid_launches}; overflow "
+          f"fallbacks taken by the compact lanes over the 4 grids: full "
+          f"maps (predict_fast) {taken['predict_fast']}, host protocol "
+          f"(Predictor.predict) {taken['predict']}")
+    for kname, n in grid_launches.items():
+        check(n > 0, f"grid: {kname} never launched on the multi-scale "
+              "grid's fused decode lane")
+
+    t0 = time.perf_counter()
+    ap_host = validation_oks(pred, anno, val_dir, params=ms,
+                             dump_name="grid_host", **kw)["AP"]
+    predict_ms = 1e3 * (time.perf_counter() - t0) / len(images)
+    print(f"{tag} host full-map protocol (process_image, neither flag) on "
+          f"the multi-scale grid: AP {ap_host:.4f}, {predict_ms:.2f} ms an "
+          f"image (host clock, validation_oks over {len(images)} images: "
+          f"Predictor.predict, host decode, scoring) [{smi}]")
+    check(aps["multi_scale"] >= 0.5, f"grid: multi-scale AP "
+          f"{aps['multi_scale']:.4f} < 0.5")
+    check(ap_host >= 0.5, f"grid: host protocol AP {ap_host:.4f} < 0.5")
+
+    # ------------------------------- (b) the decode kernels, grid shapes
+    check(len(lane_calls) == 1, f"grid: captured {len(lane_calls)} lane "
+          "decodes")
+    hold_lane_call(sk, lane_calls[0], "the first val image's multi-scale "
+                   "mean maps", smi, tag)
+    call = lane_calls.pop()
+    del lane_calls
+    gh, gw = GRID_SHAPE
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    people = [person_joints(sk, x0, rng.uniform(40, 200),
+                            rng.uniform(300, 520))
+              for x0 in (60.0, 420.0, 780.0)]
+    small = planted_grid_maps(sk, people, gh // 4, -(-gw // 4), dev)[None]
+    small = small + 0.01 * torch.randn(small.shape, device=dev,
+                                       generator=gen)
+    maps = upsample_cubic(small, sk.stride)[:, :, :gw].contiguous()
+    vh = torch.full((1,), gh, dtype=torch.int32, device=dev)
+    vw = torch.full((1,), gw, dtype=torch.int32, device=dev)
+    kws = lane_kwargs(sk, call[3], call[4])
+    hold_decode(sk, maps, vh, vw, *kws,
+                f"planted people at the grid shape {tuple(maps.shape)}, "
+                f"valid {gh}x{gw}", smi, tag=tag)
+    timed = time_decode(sk, maps, vh, vw, *kws)
+    print(f"{tag} at {tuple(maps.shape)}: " + ", ".join(
+        f"{k} {a:.4f} ms (wrapper call, events), "
+        + ("not measured" if b is None else f"{b:.4f} ms")
+        + " on the device" for k, (a, b) in timed.items()) + f" [{smi}]")
+    del maps, small, call
+
+    # -------------------------------- (c) full width at serve size
+    big = checkpoint_predictor("canonical", None, "fp32", device=dev)
+    image = rng.integers(0, 256, (*SERVE_IMAGE, 3), dtype=np.uint8)
+    shapes = []
+    big.compact_maps = first_calls(big.compact_maps, 1, shapes)
+    big.predict_compact_ms(image, params=ms)              # warm-up
+    del big.compact_maps
+    grid_shape = tuple(shapes[0][0].shape)
+    check(grid_shape == (1, gh, gw, sk.num_layers),
+          f"serve-size grid: mean maps {grid_shape}, want "
+          f"{(1, gh, gw, sk.num_layers)}")
+    del shapes
+    torch.cuda.reset_peak_memory_stats()
+    fused_ms = host_ms(lambda: big.predict_compact_ms(image, params=ms))
+    fused_peak = torch.cuda.max_memory_allocated()
+    # the grid only enqueues: no call in predict_decoded_async may wait
+    # for the card (torch's sync debug mode raises at a synchronizing
+    # call: a read back to the host, a blocking copy); resolve() is the
+    # one read back.  An event recorded as it returns can still be done,
+    # since the host-bound eager grid leaves the card idle, and a sleep
+    # kernel ahead of it fills the launch queue, which blocks the host
+    big.predict_decoded(image, params=ms)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        resolve = big.predict_decoded_async(image, params=ms)
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    except RuntimeError as err:
+        fail(f"serve-size grid: predict_decoded_async waited for the card "
+             f"before resolve(): {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    decoded = resolve()
+    check(decoded.subset.shape == (big.assembly_pmax, sk.num_parts + 2, 2)
+          and np.isfinite(decoded.subset).all(),
+          "serve-size grid: malformed decode result")
+    big.predict(image, ms)                                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    full_ms = host_ms(lambda: big.predict(image, ms), calls=2)
+    full_peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} canonical (seeded init) on one {SERVE_IMAGE[0]}x"
+          f"{SERVE_IMAGE[1]} image, multi-scale grid (mean grid "
+          f"{gh}x{gw}): fused grid {fused_ms:.2f} ms an image, peak "
+          f"device memory {fused_peak / 2**30:.2f} GiB; "
+          f"predict_decoded_async enqueued in {enqueue_ms:.2f} ms with no "
+          f"synchronizing call; Predictor.predict "
+          f"{full_ms:.2f} ms, peak {full_peak / 2**30:.2f} GiB [{smi}]")
+    del big
+
+    # --------------------------------------------- (d) the dtype matrix
+    # phase 7's val set, and its extension to DTYPE_VAL_IMAGES images of
+    # the same seed (its first 12 are phase 7's), on which the gate is
+    # taken: on 12 images (24 people) one (person, OKS threshold) match
+    # moves AP by ~0.004, the size of the 0.01 bound's own steps
+    val_more = os.path.join(os.path.dirname(val_dir), "val_dtype")
+    anno_more = os.path.join(os.path.dirname(val_dir),
+                             "person_keypoints_dtype.json")
+    build_val_set(val_more, anno_more, num_images=DTYPE_VAL_IMAGES,
+                  img_size=SYNTH_AP["canvas"], people_per_image=2,
+                  image_size=net, seed=SYNTH_AP["val_seed"], drawn=True)
+    check(all(np.array_equal(im, cv2.imread(os.path.join(val_more, f)))
+              for im, f in zip(images, sorted(os.listdir(val_dir)))),
+          "dtype matrix: the extended val set does not start with phase "
+          "7's val images")
+    dtype_ap, dtype_ap_more, dtype_bytes = {}, {}, {}
+    serve_rate, serve_bytes = {}, {}
+    batch = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+             for _ in range(BATCH)]
+    for dtype in ("fp32", "bf16", "int8"):
+        p = pred if dtype == "fp32" else checkpoint_predictor(
+            name_cfg, ckpt, dtype, boxsize=net, device=dev)
+        dtype_ap[dtype] = validation_oks(
+            p, anno, val_dir, device_decode=True,
+            dump_name=f"dtype_{dtype}", **kw)["AP"]
+        dtype_ap_more[dtype] = validation_oks(
+            p, anno_more, val_more, device_decode=True,
+            dump_name=f"dtype_{dtype}_more", **kw)["AP"]
+        dtype_bytes[dtype] = storage_bytes(p.model)
+        del p
+        serve = checkpoint_predictor("canonical", None, dtype, device=dev)
+        serve_bytes[dtype] = storage_bytes(serve.model)
+        serve.predict_decoded_batch(batch)                # warm-up
+        serve_rate[dtype] = BATCH * 1e3 / host_ms(
+            lambda: serve.predict_decoded_batch(batch))
+        del serve
+    del pred
+    delta = abs(dtype_ap_more["int8"] - dtype_ap_more["bf16"])
+    print(f"{tag} dtype matrix, the trained {name_cfg} checkpoint on the "
+          f"fused lane, AP on phase 7's {len(images)} val images / on "
+          f"{DTYPE_VAL_IMAGES} of the same seed: " + ", ".join(
+              f"{d} {dtype_ap[d]:.4f} / {dtype_ap_more[d]:.4f} "
+              f"({dtype_bytes[d]} B stored)" for d in dtype_ap)
+          + f"; |AP(int8) - AP(bf16)| "
+          f"{abs(dtype_ap['int8'] - dtype_ap['bf16']):.4f} / {delta:.4f}; "
+          f"canonical predict_decoded_batch at batch {BATCH} of 480x640: "
+          + ", ".join(f"{d} {serve_rate[d]:.2f} imgs/s ({serve_bytes[d]} B)"
+                      for d in serve_rate) + f" [{smi}]")
+    check(dtype_ap["fp32"] == ctx["ap_fused"],
+          f"dtype matrix: fp32 AP {dtype_ap['fp32']:.4f} differs from "
+          f"phase 7's fused-lane AP {ctx['ap_fused']:.4f}")
+    check(delta <= 0.01, f"dtype matrix: |AP(int8) - AP(bf16)| = "
+          f"{delta:.4f} > 0.01 on {DTYPE_VAL_IMAGES} val images")
+    check(dtype_bytes["int8"] <= 0.35 * dtype_bytes["fp32"],
+          f"dtype matrix: int8 stores {dtype_bytes['int8']} B, more than "
+          f"0.35 x fp32's {dtype_bytes['fp32']} B")
+
+    print(f"{tag} " + ", ".join(f"{k} AP {v:.4f}" for k, v in aps.items())
+          + f", multi-scale fused decode AP {ap_ms_decode:.4f}, host "
+          f"protocol AP {ap_host:.4f}; fused/looped ms an image (compact) "
+          + ", ".join(f"{k} {lane_ms[k, 'compact'][0]:.2f}/"
+                      f"{lane_ms[k, 'compact'][1]:.2f}" for k in grids)
+          + f"; fallbacks predict_fast {taken['predict_fast']}, predict "
+          f"{taken['predict']}; int8/bf16/fp32 AP on "
+          f"{DTYPE_VAL_IMAGES} val images {dtype_ap_more['int8']:.4f}/"
+          f"{dtype_ap_more['bf16']:.4f}/{dtype_ap_more['fp32']:.4f}, "
+          f"int8 bytes "
+          f"{dtype_bytes['int8'] / dtype_bytes['fp32']:.3f} x fp32; phase "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    return grid_launches, {k: v for k, v in timed.items()}
 
 
 def kernel_group(name: str) -> str:
@@ -1813,8 +2215,13 @@ def main() -> int:
     # ---------------------------------------- 6. training at full width
     launches.update(train_full_width(cfg, dev, smi))
 
-    # ------------------------------------------------- 7. learn -> AP
-    ap_launches = learn_to_ap(dev, smi)
+    # ------------------------------ 7. learn -> AP, 8. accuracy tiers
+    work = tempfile.mkdtemp(prefix="chip_smoke_synth_ap_")
+    try:
+        ap_launches, trained = learn_to_ap(dev, smi, work)
+        grid_launches, grid_times = accuracy_tiers(dev, smi, trained)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # ------------------------------------------------------- the result
     src = {"topk_peaks": ("improved_body_parts_torch/csrc/peaks.cu",
@@ -1838,6 +2245,8 @@ def main() -> int:
                     for k in ("focal_fwd", "focal_bwd")})
     for k, n in ap_launches.items():
         by_path[k]["learn_to_ap"] = n
+    for k, n in grid_launches.items():
+        by_path[k]["grid"] = n
     launches = ap_launches
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k],
@@ -1847,6 +2256,10 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None)
                for k, r in results.items()]
+    for row in kernels:
+        if row["name"] in grid_times:
+            row["grid_shape_ms"], row["grid_shape_device_ms"] = \
+                grid_times[row["name"]]
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(f"[chip_smoke] every phase passed in "
           f"{time.perf_counter() - T_START:.1f} s")

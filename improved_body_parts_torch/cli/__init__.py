@@ -7,7 +7,10 @@
 - ``python -m improved_body_parts_torch.cli.synth_ap``: the learn→AP
   protocol on the drawn-person fixture (``tools/synth_ap.py``);
 - ``python -m improved_body_parts_torch.cli.demo``: skeletons drawn over
-  images.
+  images;
+- ``python -m improved_body_parts_torch.cli.tta_bench``: AP under each
+  test-time-augmentation grid, or the grid's fused-vs-looped A/B
+  (``tools/tta_bench.py``).
 
 Each runs on ``--device cuda`` unless asked for ``cpu``, and prints, as
 its last report, one line ``CLI_REPORT {json}`` with the device it ran on

@@ -8,7 +8,10 @@
 Prints ``AP: <x>``, then the ``CLI_REPORT`` line (``cli``).  Without
 pycocotools (or with ``--oks-proxy``) it scores with the dependency-free
 OKS evaluator (``infer.oks``).  Runs on ``--device cuda`` unless asked for
-``cpu``.  ``--params-dtype`` waits for the serve dtypes (ROADMAP.md).
+``cpu``.  Without ``--fast``, ``--compact``, ``--compact-batch`` or
+``--device-decode`` it runs the host full-map protocol
+(``Predictor.predict``).  ``--params-dtype`` picks the weight storage
+(``utils.precision``; ``auto``: bf16 on the card, fp32 on the CPU).
 """
 from __future__ import annotations
 
@@ -16,19 +19,23 @@ import argparse
 
 
 def load_predictor(config_name: str, checkpoint: str, device="cuda",
-                   bucket: int = 128, boxsize: int = 0):
+                   bucket: int = 128, boxsize: int = 0,
+                   params_dtype: str = "auto"):
     """A ``Predictor`` over ``config_name``'s model with the weights of
     ``checkpoint`` (a ``train.checkpoint`` epoch directory), on
-    ``device``."""
+    ``device``, stored as ``params_dtype`` says
+    (``utils.precision.apply_serve_dtype``)."""
     from ..config import InferenceModelParams, get_config
     from ..infer import Predictor
     from ..models import build_model
     from ..train import restore_checkpoint
+    from ..utils.precision import apply_serve_dtype
 
     cfg = get_config(config_name)
     model = build_model(cfg, device=device)
     model.load_state_dict(restore_checkpoint(checkpoint)["model"],
                           strict=True)
+    model = apply_serve_dtype(params_dtype, model)
     model_params = InferenceModelParams(boxsize=boxsize) if boxsize else None
     return Predictor(model, cfg.skeleton, bucket=bucket,
                      model_params=model_params, device=device)
@@ -62,6 +69,12 @@ def main(argv=None):
     ap.add_argument("--boxsize", type=int, default=0,
                     help="scale val images so their height maps to this "
                          "network input size; 0 keeps the default")
+    ap.add_argument("--params-dtype", default="auto",
+                    choices=["auto", "bf16", "fp32", "int8"],
+                    help="inference weight storage: auto = bf16 on the "
+                         "card, fp32 on the CPU; int8 = weight-only "
+                         "per-output-channel quantization, dequantized in "
+                         "each layer's forward (utils.precision)")
     ap.add_argument("--oks-proxy", action="store_true",
                     help="score with the dependency-free OKS evaluator "
                          "instead of pycocotools")
@@ -84,7 +97,8 @@ def main(argv=None):
             use_proxy = True
 
     predictor = load_predictor(args.config, args.checkpoint, device=device,
-                               boxsize=args.boxsize)
+                               boxsize=args.boxsize,
+                               params_dtype=args.params_dtype)
     kw = dict(max_images=args.max_images, use_native=not args.no_native,
               fast=args.fast, compact=args.compact,
               compact_batch=args.compact_batch,
@@ -96,7 +110,8 @@ def main(argv=None):
         ap_value = validation(predictor, args.anno, args.images,
                               **kw).stats[0]
     print("AP:", ap_value)
-    exit_report("evaluate", device, config=args.config, ap=ap_value)
+    exit_report("evaluate", device, config=args.config, ap=ap_value,
+                params_dtype=args.params_dtype)
 
 
 if __name__ == "__main__":

@@ -14,10 +14,14 @@ subprocesses on ``--device`` (``cuda`` unless asked for ``cpu``).  Writes
 one strict JSON artifact (``--out``) with the JAX tool's keys, plus each
 CLI's ``CLI_REPORT`` (device, kernel launches, timings).
 
-``--decode-path``: ``fast`` (full maps, host decode), ``compact`` (device
-records, host assembly) or ``device`` (the fused lane).  Not ported yet
-(ROADMAP.md): ``full`` (the host full-map protocol), ``--dtype-matrix``
-and ``--device-gt``.
+``--decode-path``: ``full`` (the host full-map protocol,
+``Predictor.predict``), ``fast`` (full maps, host decode), ``compact``
+(device records, host assembly) or ``device`` (the fused lane).
+``--dtype-matrix`` evaluates the trained checkpoint again with bf16 and
+int8 weight storage (the evaluate CLI's ``--params-dtype``), writes
+``ap_trained_bf16``, ``ap_trained_int8``, ``int8_vs_bf16_ap_delta`` and
+``int8_within_tolerance`` (|AP(int8) - AP(bf16)| <= 0.01), and exits 1
+when the bound is broken.  Not ported yet (ROADMAP.md): ``--device-gt``.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PACKAGE = "improved_body_parts_torch"
-DECODE_FLAGS = {"fast": ["--fast"], "compact": ["--compact"],
+DECODE_FLAGS = {"full": [], "fast": ["--fast"], "compact": ["--compact"],
                 "device": ["--device-decode"]}
+INT8_AP_TOLERANCE = 0.01  # one synthetic-AP point
 
 
 def run_cli(module: str, args, timeout: float, cwd=None) -> str:
@@ -97,6 +102,10 @@ def main(argv=None):
     ap.add_argument("--out", default="SYNTH_AP_TORCH.json")
     ap.add_argument("--decode-path", default="compact",
                     choices=sorted(DECODE_FLAGS))
+    ap.add_argument("--dtype-matrix", action="store_true",
+                    help="also evaluate the trained checkpoint with bf16 "
+                         "and int8 weight storage; exit 1 when "
+                         "|AP(int8) - AP(bf16)| > 0.01")
     ap.add_argument("--lr", type=float, default=0.0,
                     help="override the config learning rate (passed to "
                          "the train CLI)")
@@ -182,6 +191,18 @@ def main(argv=None):
         "--checkpoint", latest, "--dump-name", "synth_trained"],
         timeout=3600, cwd=work)
 
+    dtype_matrix, dtype_outs = {}, {}
+    if args.dtype_matrix:
+        # the same checkpoint, val set and decode path: only the weight
+        # storage varies, so the AP deltas are the storage's own effect
+        for dtype in ("bf16", "int8"):
+            print(f"evaluating trained checkpoint @ {dtype}...", flush=True)
+            dtype_outs[dtype] = run_cli("evaluate", eval_args + [
+                "--checkpoint", latest, "--params-dtype", dtype,
+                "--dump-name", f"synth_trained_{dtype}"],
+                timeout=3600, cwd=work)
+            dtype_matrix[dtype] = parse_ap(dtype_outs[dtype])
+
     # contrast: the untrained init through the same protocol — shows the
     # AP is learned, not an artifact of the decoder
     fresh = save_fresh_checkpoint(args.config,
@@ -215,13 +236,24 @@ def main(argv=None):
         "workdir": work if (args.keep_workdir or args.workdir) else None,
         "cli_reports": {"train": parse_reports(train_out),
                         "evaluate_trained": parse_reports(trained_out),
-                        "evaluate_untrained": parse_reports(fresh_out)},
+                        "evaluate_untrained": parse_reports(fresh_out),
+                        **{f"evaluate_trained_{d}": parse_reports(out)
+                           for d, out in dtype_outs.items()}},
     }
+    if args.dtype_matrix:
+        delta = abs(dtype_matrix["int8"] - dtype_matrix["bf16"])
+        result["ap_trained_bf16"] = dtype_matrix["bf16"]
+        result["ap_trained_int8"] = dtype_matrix["int8"]
+        result["int8_vs_bf16_ap_delta"] = round(delta, 6)
+        result["int8_ap_tolerance"] = INT8_AP_TOLERANCE
+        result["int8_within_tolerance"] = bool(delta <= INT8_AP_TOLERANCE)
     with open(args.out, "w") as f:
         strict_dump(result, f, indent=2)
     print(strict_dumps(result))
     if not args.keep_workdir and args.workdir is None:
         shutil.rmtree(work, ignore_errors=True)
+    if args.dtype_matrix and not result["int8_within_tolerance"]:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

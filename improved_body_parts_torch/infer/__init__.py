@@ -23,10 +23,11 @@ from .pipeline import compact_decode_fn, device_decode_fn, pipelined_inference
 from .predict import (
     COMPACT_M_FACTOR,
     Predictor,
+    center_pad,
     pad_right_down,
     trivial_grid,
 )
-from .resize import cubic_weights, upsample_cubic
+from .resize import cubic_weights, resize_cubic, upsample_cubic
 
 __all__ = [
     "COMPACT_M_FACTOR",
@@ -36,6 +37,7 @@ __all__ = [
     "EscalationSignals",
     "Predictor",
     "assemble",
+    "center_pad",
     "compact_decode_fn",
     "cubic_weights",
     "decode",
@@ -51,6 +53,7 @@ __all__ = [
     "pad_right_down",
     "pipelined_inference",
     "process_image",
+    "resize_cubic",
     "subsets_to_keypoints",
     "trivial_grid",
     "upsample_cubic",

@@ -87,11 +87,9 @@ def run_demo(predictor: Predictor, image_path: str, output_path: str,
     """Full demo (reference: demo_image.py __main__): returns (canvas,
     (subset, candidate)) and writes the rendering to ``output_path``.
 
-    The host lane is the single-scale full-map lane
-    (``Predictor.predict_fast``: NMS on the device, assembly on the host at
-    network resolution, coordinates scaled back to the image); the JAX
-    package's host protocol (``Predictor.predict``) is not ported yet
-    (ROADMAP.md, grid and fused TTA).  ``device_decode=True`` runs the
+    The host lane is the host full-map protocol (``Predictor.predict``:
+    the maps averaged over the predictor's grid at the original
+    resolution, assembled on the host).  ``device_decode=True`` runs the
     fused lane (``Predictor.predict_decoded``) and draws straight off the
     device person table; an overflowed frame falls back to the host lane.
     The lane used is reported as a ``demo_decode`` event through the
@@ -115,14 +113,8 @@ def run_demo(predictor: Predictor, image_path: str, output_path: str,
         else:
             lane = "host_fallback"      # capacity overflow: degrade
     if lane != "device":
-        heat, paf, peak_mask, (sx, sy) = predictor.predict_fast(
-            image, params=params)
-        subset, candidate = assemble(heat, paf, params, sk, use_native,
-                                     peak_mask)
-        if len(candidate):
-            candidate = candidate.copy()
-            candidate[:, 0] *= sx
-            candidate[:, 1] *= sy
+        heat, paf = predictor.predict(image, params=params)
+        subset, candidate = assemble(heat, paf, params, sk, use_native)
     if device_decode:
         sink = get_sink()
         if sink.enabled:

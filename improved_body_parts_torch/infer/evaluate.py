@@ -5,10 +5,9 @@ Reference: evaluate.py:501-622 — per-image predict → decode → COCO-format
 results JSON → COCOeval, or the dependency-free OKS evaluator
 (``infer.oks``) where pycocotools is absent.  Everything device-side goes
 through the port's ``Predictor``: the compact lane, the full-map lane
-(``fast``) and the fused device decode (``device_decode``), single-scale.
-Not ported yet (ROADMAP.md, grid and fused TTA): the scale/rotation grid
-and the host full-map protocol (``Predictor.predict``), which raise
-``NotImplementedError``.
+(``fast``), the fused device decode (``device_decode``), the scale /
+rotation grid on the device (``compact`` with a grid) and the host
+full-map protocol (``Predictor.predict``, neither flag).
 """
 from __future__ import annotations
 
@@ -25,10 +24,6 @@ from ..obs.events import get_sink, strict_dump
 from ..utils import AverageMeter
 from .decode import CompactOverflow, decode, decode_compact
 from .predict import Predictor, trivial_grid
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md: grid and fused TTA); use "
-               "fast, compact or device_decode with a single-scale grid")
-
 
 def _report(event: str, text: str, **fields) -> None:
     """Progress reports reach the run's telemetry stream when a sink is
@@ -48,19 +43,23 @@ def process_image(predictor: Predictor, image_bgr: np.ndarray,
     """predict + decode one image → [(coco keypoints, score)]
     (reference: evaluate.py:501-543).
 
-    ``fast=True`` keeps NMS on the device and decodes the full maps at
-    network-input resolution, rescaling coordinates back
-    (``Predictor.predict_fast``).  ``compact=True`` also keeps peak
-    refinement and limb pair scoring on the device
-    (``Predictor.predict_compact``); a peak-count overflow falls back to
-    the fast path.  Single-scale only: a scale/rotation grid, and the host
-    full-map protocol (neither flag), raise ``NotImplementedError``."""
-    if not trivial_grid(params):
-        raise NotImplementedError("the scale/rotation grid " + _NOT_PORTED)
+    ``fast=True`` (single-scale protocol only) keeps NMS on the device and
+    decodes the full maps at network-input resolution, rescaling
+    coordinates back (``Predictor.predict_fast``).  ``compact=True`` also
+    keeps peak refinement and limb pair scoring on the device
+    (``Predictor.predict_compact``, or ``predict_compact_ms`` for a
+    multi-scale grid); an overflow falls back to the fast path for the
+    trivial grid, else to the host full-map protocol.  Neither flag runs
+    the host full-map protocol (``Predictor.predict``: the maps averaged
+    over the grid at the original resolution) and decodes there."""
     if compact:
         try:
-            res = predictor.predict_compact(image_bgr, thre1=params.thre1,
-                                            params=params)
+            if len(params.scale_search) > 1:
+                res = predictor.predict_compact_ms(
+                    image_bgr, thre1=params.thre1, params=params)
+            else:
+                res = predictor.predict_compact(
+                    image_bgr, thre1=params.thre1, params=params)
             t0 = time.perf_counter()
             results = decode_compact(res, params, predictor.skeleton,
                                      use_native=use_native)
@@ -68,16 +67,21 @@ def process_image(predictor: Predictor, image_bgr: np.ndarray,
                 timer.update(time.perf_counter() - t0)
             return results
         except CompactOverflow:
-            fast = True
-    if not fast:
-        raise NotImplementedError("the host full-map protocol "
-                                  "(Predictor.predict) " + _NOT_PORTED)
-    heat, paf, peak_mask, coord_scale = predictor.predict_fast(
-        image_bgr, params=params)
-    t0 = time.perf_counter()
-    results = decode(heat, paf, params, predictor.skeleton,
-                     use_native=use_native, peak_mask=peak_mask,
-                     coord_scale=coord_scale)
+            # predict_fast rejects a grid: a grid's overflow falls
+            # through to the host full-map protocol below
+            fast = trivial_grid(params)
+    if fast:
+        heat, paf, peak_mask, coord_scale = predictor.predict_fast(
+            image_bgr, params=params)
+        t0 = time.perf_counter()
+        results = decode(heat, paf, params, predictor.skeleton,
+                         use_native=use_native, peak_mask=peak_mask,
+                         coord_scale=coord_scale)
+    else:
+        heat, paf = predictor.predict(image_bgr, params=params)
+        t0 = time.perf_counter()
+        results = decode(heat, paf, params, predictor.skeleton,
+                         use_native=use_native)
     if timer is not None:
         timer.update(time.perf_counter() - t0)
     return results

@@ -11,8 +11,8 @@ back and decoded, and decoding itself can fan out over a thread pool (the
 native C++ decoder releases the GIL during the ctypes call), so the card
 never waits for the host.
 
-Results are yielded strictly in input order.  Single-scale protocol
-only: the scale/rotation grid is not ported yet (ROADMAP.md).
+Results are yielded strictly in input order.  A scale / rotation grid
+runs through the compact lanes' grid dispatch, one image at a time.
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ def compact_decode_fn(predictor, params: Optional[InferenceParams] = None,
     The returned ``decode_one(compact_res, image)`` decodes one image's
     compact payload; on ``CompactOverflow`` (peak/candidate counts past
     the device top-K capacity) it transparently re-runs that image
-    through the full-map path, ``predict_fast``.  A scale/rotation grid
-    has no full-map path in the port yet, so its overflow raises.
+    through the full-map path -- ``predict_fast`` for the trivial grid,
+    the host ``Predictor.predict`` for a scale / rotation grid (which
+    the fast path rejects).
     """
     from .predict import trivial_grid
 
@@ -53,9 +54,9 @@ def compact_decode_fn(predictor, params: Optional[InferenceParams] = None,
                                   use_native=use_native)
         except CompactOverflow:
             if not single_dispatch_grid:
-                raise NotImplementedError(
-                    "the full-map fallback of a scale/rotation grid is not "
-                    "ported yet (ROADMAP.md: grid and fused TTA)")
+                heat, paf = predictor.predict(image, params=params)
+                return decode(heat, paf, params, skeleton,
+                              use_native=use_native)
             heat, paf, mask, scale = predictor.predict_fast_async(
                 image, params=params)()
             return decode(heat, paf, params, skeleton, peak_mask=mask,
@@ -114,9 +115,11 @@ def pipelined_inference(predictor, images: Iterable[np.ndarray],
 
     ``compact_batch`` > 1 (throughput mode, implies ``compact``) chunks
     the stream and runs ``predict_compact_batch`` — N images + mirrors in
-    one 2N-lane dispatch sharing one transfer round trip.
-    ``compact_batch == 1`` degrades to the plain compact path rather than
-    being silently ignored.
+    one 2N-lane dispatch sharing one transfer round trip.  A scale /
+    rotation grid still works (each image through the grid dispatch, one
+    fetch a chunk, chunked in arrival order); the 2N-lane sharing only
+    applies to the trivial grid.  ``compact_batch == 1`` degrades to the
+    plain compact path rather than being silently ignored.
 
     ``device_decode`` (implies ``compact``) runs the greedy person
     assembly on the device too (``Predictor.predict_decoded*``); the
@@ -127,14 +130,11 @@ def pipelined_inference(predictor, images: Iterable[np.ndarray],
 
     params = params or predictor.params
     skeleton = skeleton or predictor.skeleton
-    if not trivial_grid(params):
-        raise NotImplementedError(
-            "the multi-scale / rotation grid is not ported yet "
-            "(ROADMAP.md: grid and fused TTA)")
     if device_decode:
         compact = True
     if compact_batch == 1:
         compact, compact_batch = True, 0
+    single_dispatch_grid = trivial_grid(params)
 
     def run_decode(resolve: Callable):
         heat, paf, mask, scale = resolve()
@@ -201,7 +201,10 @@ def pipelined_inference(predictor, images: Iterable[np.ndarray],
                     next_out += 1
 
             for image in images:
-                key = predictor.compact_lane_shape(image, params)
+                # a grid dispatches per image inside the batch call
+                # anyway: shape buckets would only split its chunks
+                key = (predictor.compact_lane_shape(image, params)
+                       if single_dispatch_grid else "arrival")
                 idxs, chunk = buckets.setdefault(key, ([], []))
                 idxs.append(n_in)
                 chunk.append(image)

@@ -1,16 +1,17 @@
-"""Flip-ensemble prediction, the fused device decode (the serve lane), and
-the compact and full-map lanes its fallbacks and the host-pool lane use.
+"""Flip-ensemble prediction, the fused device decode (the serve lane), the
+compact and full-map lanes its fallbacks and the host-pool lane use, and
+the accuracy tiers: the scale x rotation grid on the device and the host
+full-map protocol.
 
-Counterpart of the single-scale lanes of
-``improved_body_parts_tpu/infer/predict.py``.  Per batch of same-shape
-images, all on the device:
+Counterpart of ``improved_body_parts_tpu/infer/predict.py``.  Per batch of
+same-shape images, all on the device:
 
 1. one forward of the IMHN over [images, mirrored images] (2N lanes);
 2. the flip merge (mirror-lane channel permutation + average);
 3. the x stride cubic upsample (``infer.resize``);
 4. per image, peak top-K (``ops.peaks.topk_peaks``), dense limb sampling
-   (``limb_pair_stats``) and acceptance + top-M ranking
-   (``limb_topk_from_stats``): the compact records;
+   with acceptance + top-M ranking (``limb_topk_candidates``): the
+   compact records;
 5. on the fused lane, greedy assembly (``ops.assembly.greedy_assemble``);
 6. everything packed into one fp32 row per image, fetched once.
 
@@ -24,16 +25,29 @@ reads either package's buffers.  The lanes:
 - ``predict_fast(_async)``: the full maps plus a ``keypoint_nms`` peak
   mask over the valid region (the JAX "peaks" mode), decoded on the host
   by ``infer.decode.decode``: the fallback when the compact capacities
-  overflow.
+  overflow;
+- ``predict_compact_ms(_async)``: the scale x rotation grid of one image
+  on the device (the reference's evaluation protocol, evaluate.py:83-166,
+  minus the host round trips): per grid entry the rotation lane, the
+  flip ensemble, crop, un-rotation and a cubic regrid onto the largest
+  scale's unpadded grid; the mean of the entries; the compact (or, for
+  ``predict_decoded*``, the fused decode) extraction on it.  The compact
+  and decoded lanes route a grid here by themselves.  ``fused_tta``
+  picks one call that accumulates the entries as it goes (one upload a
+  scale, no per-entry map kept) or the looped form (one call an entry,
+  each entry's map kept, then the mean); both run the same ops in the
+  same order, so their payloads are equal bit for bit;
+- ``predict``: the host full-map protocol, cv2 resizes and rotations
+  around each entry's device ensemble, the mean at the original size.
 
 Host preprocessing (cubic resize to ``boxsize``, bucket padding) is the
-JAX package's, with cv2.  Not ported yet (ROADMAP): the multi-scale /
-rotation grid and fused TTA, and the spatial mesh.
+JAX package's, with cv2.  Not ported (ROADMAP): the spatial mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import cv2
@@ -52,12 +66,11 @@ from ..ops.nms import keypoint_nms
 from ..ops.peaks import (
     LimbCandidates,
     TopKPeaks,
-    limb_pair_stats,
-    limb_topk_from_stats,
+    limb_topk_candidates,
     topk_peaks,
 )
 from .decode import CompactResult, DeviceDecoded
-from .resize import upsample_cubic
+from .resize import resize_cubic, upsample_cubic
 
 # candidate cap of the compact payload, as a multiple of the peak top-K:
 # m_cap = COMPACT_M_FACTOR * compact_topk accepted pairs ship per limb
@@ -66,7 +79,8 @@ COMPACT_M_FACTOR = 2
 
 def trivial_grid(prm: InferenceParams) -> bool:
     """True when the ensemble grid is a single scale and no rotation --
-    the protocol the batched decode lane covers."""
+    the protocol the batched lanes and ``predict_fast`` cover; every
+    grid-routing decision goes through here."""
     return (len(prm.scale_search) == 1
             and tuple(prm.rotation_search) == (0.0,))
 
@@ -81,6 +95,62 @@ def _pow2_chunks(items: Sequence) -> List[list]:
         pos += size
         g -= size
     return out
+
+
+def _warp_rotate(maps: torch.Tensor, angle_deg: float,
+                 center: Tuple[float, float]) -> torch.Tensor:
+    """(N, H, W, C) maps rotated by ``angle_deg`` about ``center`` (cx,
+    cy), on their own device, with the semantics of the JAX package's
+    ``_warp_rotate``: ``cv2.warpAffine(src, cv2.getRotationMatrix2D(
+    center, angle, 1), (0, 0))`` sampled at M^-1 (x, y) as
+    ``map_coordinates(order=1, cval=0)`` samples -- the four neighbours
+    ``floor`` / ``floor + 1`` of each source point, weighted ``1 - frac``
+    / ``frac``, a neighbour outside the image contributing 0, the four
+    terms summed in the order (lo, lo), (lo, hi), (hi, lo), (hi, hi) of
+    (y, x).  ``F.grid_sample`` rounds and borders otherwise."""
+    theta = math.radians(angle_deg)
+    a, b = math.cos(theta), math.sin(theta)
+    cx, cy = center
+    n, h, w, c = maps.shape
+    dev = maps.device
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    dx, dy = xs - cx, ys - cy
+    # getRotationMatrix2D's linear part is [[a, b], [-b, a]] (y down,
+    # positive angle counter-clockwise); its inverse flips b's sign
+    sx = a * dx - b * dy + cx
+    sy = b * dx + a * dy + cy
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    wy1, wx1 = sy - y0, sx - x0
+    y0, x0 = y0.to(torch.int64), x0.to(torch.int64)
+    flat = maps.reshape(n, h * w, c)
+    out = None
+    for y, wy in ((y0, 1 - wy1), (y0 + 1, wy1)):
+        for x, wx in ((x0, 1 - wx1), (x0 + 1, wx1)):
+            inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+            idx = (y.clamp(0, h - 1) * w + x.clamp(0, w - 1)).reshape(-1)
+            vals = flat[:, idx].reshape(n, h, w, c)
+            term = (wy * wx)[None, :, :, None] * torch.where(
+                inside[None, :, :, None], vals, torch.zeros((), device=dev))
+            out = term if out is None else out + term
+    return out
+
+
+def center_pad(img: np.ndarray, multiple: int, pad_value: int
+               ) -> Tuple[np.ndarray, Tuple[int, int, int, int]]:
+    """Symmetric padding to the next multiple; returns (image,
+    (top, left, bottom, right)) (reference: utils/util.py:68-100)."""
+    h, w = img.shape[:2]
+    dh = (multiple - h % multiple) % multiple
+    dw = (multiple - w % multiple) % multiple
+    top, left = int((h + dh - h) / 2), int((w + dw - w) / 2)
+    bottom, right = dh - top, dw - left
+    if dh or dw:
+        img = cv2.copyMakeBorder(img, top, bottom, left, right,
+                                 cv2.BORDER_CONSTANT,
+                                 value=(pad_value,) * 3)
+    return img, (top, left, bottom, right)
 
 
 def pad_right_down(img: np.ndarray, multiple: int, pad_value: int
@@ -104,14 +174,17 @@ class Predictor:
     NHWC float32 predictions (``models.posenet.PoseNet``) and lies on
     ``device``.  ``compact_topk`` is the per-channel peak capacity,
     ``assembly_pmax`` the person-table capacity; crowds past either set
-    an overflow flag in the result (``DeviceDecoded.ok``).
+    an overflow flag in the result (``DeviceDecoded.ok``).  ``fused_tta``
+    picks the scale x rotation grid's fused form (one call an image)
+    over the looped one (one call an entry, then the mean).
     """
 
     def __init__(self, model, skeleton: SkeletonConfig,
                  params: Optional[InferenceParams] = None,
                  model_params: Optional[InferenceModelParams] = None,
                  bucket: int = 128, compact_topk: int = 64,
-                 assembly_pmax: int = 32, device="cuda"):
+                 assembly_pmax: int = 32, device="cuda",
+                 fused_tta: bool = True):
         d_params, d_model_params = default_inference_params()
         self.device = resolve_device(device)
         self.model = model
@@ -121,6 +194,10 @@ class Predictor:
         self.bucket = max(bucket, self.model_params.max_downsample)
         self.compact_topk = compact_topk
         self.assembly_pmax = assembly_pmax
+        self.fused_tta = fused_tta
+        # the grid's dispatches, counted where they are issued: 1 an
+        # image fused, entries + 1 looped (``cli.tta_bench`` reads it)
+        self.dispatch_count = 0
         # (mode, (n, h, w), thre1, spec) of every batch program this
         # predictor has run: the first run of each pays the card's
         # one-off costs (the kernels' build, cuDNN's algorithm choice,
@@ -176,20 +253,16 @@ class Predictor:
         the compact records, the shared front half of both payloads."""
         sk = self.skeleton
         thre2, mid_num, radius, topk, connect_ration = compact_spec
-        limbs_from = tuple(a for a, _ in sk.limbs_conn)
-        limbs_to = tuple(b for _, b in sk.limbs_conn)
         kp = maps[..., sk.paf_layers:sk.paf_layers + sk.num_parts]
         paf = maps[..., :sk.paf_layers]
         peaks = topk_peaks(kp, valid_h, valid_w, thre=thre1, k=topk,
                            radius=radius)
-        stats = limb_pair_stats(paf, peaks.x_ref, peaks.y_ref,
-                                limbs_from=limbs_from, limbs_to=limbs_to,
-                                num_samples=mid_num, thre2=thre2)
-        cands = limb_topk_from_stats(stats, peaks, valid_h,
-                                     limbs_from=limbs_from,
-                                     limbs_to=limbs_to,
-                                     connect_ration=connect_ration,
-                                     m_cap=COMPACT_M_FACTOR * topk)
+        cands = limb_topk_candidates(
+            paf, peaks, valid_h,
+            limbs_from=tuple(a for a, _ in sk.limbs_conn),
+            limbs_to=tuple(b for _, b in sk.limbs_conn),
+            num_samples=mid_num, thre2=thre2,
+            connect_ration=connect_ration, m_cap=COMPACT_M_FACTOR * topk)
         return peaks, cands
 
     @torch.inference_mode()
@@ -346,21 +419,43 @@ class Predictor:
         group runs as its binary decomposition (chunks of power-of-two
         size, largest first; no padding lanes), the chunks' packed rows
         are concatenated on the device and ``resolve()`` fetches them in
-        one copy and returns results in input order.  On a CUDA device
-        the call only enqueues the device work: nothing is read back
-        before ``resolve()``."""
+        one copy and returns results in input order.  A scale / rotation
+        grid dispatches each image through :meth:`_compact_ms_dispatch`
+        and stacks the rows on the device, one fetch as well.  On a CUDA
+        device the call only enqueues the device work: nothing is read
+        back before ``resolve()``."""
         prm = params or self.params
-        if not trivial_grid(prm):
-            raise NotImplementedError(
-                "the multi-scale / rotation grid is not ported yet "
-                "(ROADMAP.md: grid and fused TTA)")
-        if thre1 is None:
-            thre1 = prm.thre1
         if not len(images_bgr):
             return lambda: []
-        mp = self.model_params
         spec = self._decode_spec(prm) if mode == "decode" \
             else self._compact_spec(prm)
+
+        def unpack(buf, image_size, coord_scale):
+            if mode == "decode":
+                return self._unpack_decoded(buf, spec, image_size,
+                                            coord_scale)
+            return self._unpack_compact(buf, spec[3], image_size,
+                                        coord_scale)
+
+        if not trivial_grid(prm):
+            # a grid cannot share one batched forward: each image runs
+            # its own grid dispatch, and the same-length packed rows are
+            # stacked on the device so the batch still pays one fetch
+            dispatches = [self._compact_ms_dispatch(im, thre1, prm,
+                                                    mode=mode)
+                          for im in images_bgr]
+            with self._device_scope():
+                stacked = torch.stack([d[0] for d in dispatches])
+
+            def resolve_grid():
+                buf = stacked.cpu().numpy()  # (n, P) -- one fetch
+                return [unpack(buf[i], rh0, cs)
+                        for i, (_, rh0, cs) in enumerate(dispatches)]
+
+            return resolve_grid
+        if thre1 is None:
+            thre1 = prm.thre1
+        mp = self.model_params
 
         prepared, sizes = [], []
         for image in images_bgr:
@@ -390,12 +485,7 @@ class Predictor:
             results = [None] * len(order)
             for row, i in enumerate(order):
                 oh, ow, rh, rw = sizes[i]
-                if mode == "decode":
-                    results[i] = self._unpack_decoded(buf[row], spec, rh,
-                                                      (ow / rw, oh / rh))
-                else:
-                    results[i] = self._unpack_compact(buf[row], spec[3], rh,
-                                                      (ow / rw, oh / rh))
+                results[i] = unpack(buf[row], rh, (ow / rw, oh / rh))
             return results
 
         return resolve
@@ -414,7 +504,9 @@ class Predictor:
                               params: Optional[InferenceParams] = None):
         """Dispatch the fused decode of one image (the serving engine's
         singleton flush); returns a ``resolve()`` closure giving its
-        ``DeviceDecoded``."""
+        ``DeviceDecoded``.  A scale / rotation grid runs through the grid
+        dispatch (:meth:`_compact_ms_dispatch`), the assembly on the mean
+        maps."""
         resolve = self._packed_batch_async([image_bgr], thre1, params,
                                            mode="decode")
         return lambda: resolve()[0]
@@ -451,7 +543,9 @@ class Predictor:
                               thre1: Optional[float] = None,
                               params: Optional[InferenceParams] = None):
         """Dispatch the compact lane for one image; returns a
-        ``resolve()`` closure giving its ``CompactResult``."""
+        ``resolve()`` closure giving its ``CompactResult``.  A scale /
+        rotation grid runs through the grid dispatch, as
+        :meth:`predict_compact_ms_async` does."""
         resolve = self._packed_batch_async([image_bgr], thre1, params,
                                            mode="compact")
         return lambda: resolve()[0]
@@ -502,8 +596,8 @@ class Predictor:
         if not trivial_grid(prm):
             raise ValueError(
                 "predict_fast requires a single-entry scale/rotation grid "
-                "(the grid is not ported yet: ROADMAP.md, grid and fused "
-                "TTA)")
+                "(grid ensembles: predict_compact / predict_compact_ms "
+                "run them on the device; Predictor.predict on the host)")
         if thre1 is None:
             thre1 = prm.thre1
         oh, ow = image_bgr.shape[:2]
@@ -528,6 +622,186 @@ class Predictor:
                     peak_mask, (ow / rw, oh / rh))
 
         return resolve
+
+    # ------------------------------------------------------------------ #
+    # The accuracy tiers: the scale x rotation grid
+    def predict_compact_ms(self, image_bgr: np.ndarray,
+                           thre1: Optional[float] = None,
+                           params: Optional[InferenceParams] = None,
+                           fused: Optional[bool] = None) -> CompactResult:
+        """The grid's compact lane for one image; see
+        :meth:`predict_compact_ms_async`."""
+        return self.predict_compact_ms_async(image_bgr, thre1, params,
+                                             fused=fused)()
+
+    def predict_compact_ms_async(self, image_bgr: np.ndarray,
+                                 thre1: Optional[float] = None,
+                                 params: Optional[InferenceParams] = None,
+                                 fused: Optional[bool] = None):
+        """Dispatch the scale x rotation grid of one image on the device
+        (:meth:`_compact_ms_dispatch`) and return a ``resolve()`` closure
+        that fetches its one packed compact row.  Decoding happens on the
+        largest scale's grid with coordinates rescaled back, as in the
+        JAX package (the reference averages at the original resolution
+        with cv2 resizes, which :meth:`predict` does).  ``fused`` defaults
+        to the predictor's ``fused_tta``."""
+        prm = params or self.params
+        packed, rh0, coord_scale = self._compact_ms_dispatch(
+            image_bgr, thre1, prm, fused=fused)
+
+        def resolve():
+            return self._unpack_compact(packed.cpu().numpy(),
+                                        self.compact_topk, rh0, coord_scale)
+
+        return resolve
+
+    def _compact_ms_dispatch(self, image_bgr: np.ndarray,
+                             thre1: Optional[float], prm: InferenceParams,
+                             mode: str = "compact",
+                             fused: Optional[bool] = None):
+        """Enqueue the (scale x rotation) grid of one image; returns its
+        packed row (P,), still on the device, with the decode grid's
+        height and the coordinate scale back to the image.  ``mode`` is
+        "compact" or "decode" (the fused assembly on the mean maps).
+
+        ``fused`` (default ``fused_tta``): one call uploads each scale's
+        image once and adds every entry into one accumulator as it is
+        made, scale-major, rotation-minor; looped, each entry is a call
+        of its own (its image uploaded again), its map kept, and a last
+        call averages them in the same order.  Either way nothing is read
+        back before the caller fetches the row."""
+        if thre1 is None:
+            thre1 = prm.thre1
+        if fused is None:
+            fused = self.fused_tta
+        mp = self.model_params
+        oh, ow = image_bgr.shape[:2]
+        # decode on the LARGEST scale's grid (finest, and independent of
+        # the order of scale_search)
+        prepared = [self._prepare_input(image_bgr, s * mp.boxsize / oh)
+                    for s in prm.scale_search]
+        grid = max((valid for _, valid in prepared),
+                   key=lambda v: v[0] * v[1])
+        angles = tuple(prm.rotation_search)
+        spec = self._decode_spec(prm) if mode == "decode" \
+            else self._compact_spec(prm)
+        with self._device_scope(), torch.inference_mode():
+            if fused:
+                self.dispatch_count += 1
+                acc = None
+                for img, valid in prepared:
+                    img_d = self._upload(img[None])
+                    for angle in angles:
+                        m = self._grid_entry(img_d, valid, grid, angle)
+                        acc = m if acc is None else acc + m
+                packed = self._grid_extract(
+                    acc, len(prepared) * len(angles), grid, thre1, spec,
+                    mode)
+            else:
+                entries = [self._grid_entry(self._upload(img[None]), valid,
+                                            grid, angle)
+                           for img, valid in prepared for angle in angles]
+                self.dispatch_count += len(entries) + 1
+                packed = self._grid_average(entries, grid, thre1, spec,
+                                            mode)
+        return packed, grid[0], (ow / grid[1], oh / grid[0])
+
+    def _grid_entry(self, img: torch.Tensor, valid: Tuple[int, int],
+                    grid: Tuple[int, int], angle: float) -> torch.Tensor:
+        """One grid entry: the (1, H, W, 3) padded image on the device ->
+        the flip-ensembled maps of its valid region, rotated back when
+        ``angle`` is not 0, resized onto ``grid``: (1, grid h, grid w, C).
+
+        A rotated entry rotates the valid region about its centre with a
+        zero border (the pad excluded from sampling and filled with the
+        pad value again after), runs the ensemble on it and rotates the
+        maps back before the regrid.  The centre is the reference's
+        (h/2, w/2) passed as (cx, cy) (evaluate.py:108); like the JAX
+        package, the pre-pad region is rotated, where the reference
+        rotates the padded frame (PARITY.md)."""
+        rh, rw = valid
+        center = (rh / 2, rw / 2)
+        lane = img
+        if angle != 0.0:
+            pad_norm = self.model_params.pad_value / 255.0
+            lane = img.clone()
+            lane[:, rh:] = 0.0
+            lane[:, :, rw:] = 0.0
+            lane = _warp_rotate(lane, angle, center)
+            lane[:, rh:] = pad_norm
+            lane[:, :, rw:] = pad_norm
+        maps = self.ensemble_maps(lane)[:, :rh, :rw]
+        if angle != 0.0:
+            maps = _warp_rotate(maps, -angle, center)
+        return resize_cubic(maps, grid)
+
+    def _grid_average(self, entries: List[torch.Tensor],
+                      grid: Tuple[int, int], thre1: float, spec,
+                      mode: str) -> torch.Tensor:
+        """The looped grid's last call: the entries' kept maps summed in
+        order, then :meth:`_grid_extract`."""
+        acc = entries[0]
+        for m in entries[1:]:
+            acc = acc + m
+        return self._grid_extract(acc, len(entries), grid, thre1, spec,
+                                  mode)
+
+    def _grid_extract(self, acc: torch.Tensor, n_entries: int,
+                      grid: Tuple[int, int], thre1: float, spec,
+                      mode: str) -> torch.Tensor:
+        """The entries' sum -> their mean -> the packed compact (or fused
+        decode) row, (P,), with the whole grid as the valid region."""
+        valid = self._upload(np.array([grid], np.int32))
+        extract = self.decode_maps if mode == "decode" else self.compact_maps
+        return extract(acc / n_entries, valid[:, 0], valid[:, 1], thre1,
+                       spec)[0]
+
+    def predict(self, image_bgr: np.ndarray,
+                params: Optional[InferenceParams] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """The host full-map protocol (reference: evaluate.py:83-166): the
+        maps averaged over the scale x rotation grid at the original
+        resolution.  Each entry resizes (cv2 ``INTER_CUBIC``) and, when
+        rotated, warps the image on the host (``getRotationMatrix2D`` +
+        ``warpAffine``), runs :meth:`ensemble_maps` on the padded image
+        on the device, fetches its full maps, and unpads, un-rotates and
+        resizes them back on the host.
+
+        :param image_bgr: (H, W, 3) uint8, cv2 order
+        :returns: (heat (H, W, heat_layers + 2), paf (H, W, paf_layers))
+        """
+        sk, mp = self.skeleton, self.model_params
+        prm = params or self.params
+        oh, ow = image_bgr.shape[:2]
+        heat_avg = np.zeros((oh, ow, sk.heat_layers + 2), np.float32)
+        paf_avg = np.zeros((oh, ow, sk.paf_layers), np.float32)
+        multipliers = [s * mp.boxsize / oh for s in prm.scale_search]
+        grid = [(s, a) for s in multipliers for a in prm.rotation_search]
+        for scale, angle in grid:
+            rot_back = None
+            if angle != 0:
+                scale = self._clamp_scale(scale, oh, ow)
+                resized = cv2.resize(image_bgr, (0, 0), fx=scale, fy=scale,
+                                     interpolation=cv2.INTER_CUBIC)
+                rc = (resized.shape[0] / 2, resized.shape[1] / 2)
+                rot = cv2.getRotationMatrix2D(rc, angle, 1)
+                rot_back = cv2.getRotationMatrix2D(rc, -angle, 1)
+                resized = cv2.warpAffine(resized, rot, (0, 0))
+                rh, rw = resized.shape[:2]
+                padded, _ = pad_right_down(resized, self.bucket,
+                                           mp.pad_value)
+                img = padded.astype(np.float32) / 255.0
+            else:
+                img, (rh, rw) = self._prepare_input(image_bgr, scale)
+            with self._device_scope():
+                maps = self.ensemble_maps(self._upload(img[None]))[0]
+                maps = maps.cpu().numpy()[:rh, :rw]
+            if rot_back is not None:
+                maps = cv2.warpAffine(maps, rot_back, (0, 0))
+            maps = cv2.resize(maps, (ow, oh), interpolation=cv2.INTER_CUBIC)
+            paf_avg += maps[..., :sk.paf_layers] / len(grid)
+            heat_avg += maps[..., sk.paf_layers:] / len(grid)
+        return heat_avg, paf_avg
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """A host array on the lane's device.  On a CUDA device the copy

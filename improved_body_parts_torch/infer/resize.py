@@ -1,18 +1,23 @@
-"""The x stride cubic upsample of the ensembled maps.
+"""The cubic resize of the ensembled maps: the x stride upsample of every
+lane, and the regrid of a scale / rotation grid's entries onto the
+decode grid.
 
 Written to ``jax.image.resize(..., method="cubic")``'s definition, which
-the JAX package's serve program uses: the Keys cubic kernel with a = -0.5,
+the JAX package's programs use: the Keys cubic kernel with a = -0.5,
 half-pixel sample positions, each output's weights renormalised to sum to
 one (which matters at the edges), and weights of samples outside the
-input zeroed.  ``F.interpolate(mode="bicubic")`` is another function
-(a = -0.75, clamped edges).  The resize is separable, so it runs as two
-weight-matrix products, rows then columns, on the maps' own device (a
-float32 product in full precision unless the caller enabled TF32 for
-matmuls).
+input zeroed; when shrinking, the kernel widens by the ratio
+(antialiasing, JAX's default).  ``F.interpolate(mode="bicubic")`` is
+another function (a = -0.75, clamped edges).  The resize is separable,
+so it runs as two weight-matrix products, rows then columns, on the
+maps' own device (a float32 product in full precision unless the caller
+enabled TF32 for matmuls); a dimension whose size does not change is
+skipped, as JAX skips it, so it passes through bit for bit.
 """
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 
@@ -41,17 +46,37 @@ def cubic_weights(in_size: int, out_size: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _weights_on(in_size: int, out_size: int,
                 device: torch.device) -> torch.Tensor:
-    """:func:`cubic_weights` on ``device``, made once per size and device:
-    a copy at each call would make the host wait for the queued work."""
-    return cubic_weights(in_size, out_size).to(device)
+    """:func:`cubic_weights` on ``device``, made once per size and device
+    and copied from pinned memory without blocking: a blocking copy
+    makes the host wait for the work queued before it (a grid's regrid
+    meets a new size with each new image size)."""
+    weights = cubic_weights(in_size, out_size)
+    if device.type == "cuda":
+        return weights.pin_memory().to(device, non_blocking=True)
+    return weights.to(device)
+
+
+def resize_cubic(maps: torch.Tensor, size: Tuple[int, int]
+                 ) -> torch.Tensor:
+    """(N, h, w, C) float32 maps -> (N, out_h, out_w, C), ``size`` =
+    (out_h, out_w), at any ratio: rows, then columns, each skipped when
+    its size does not change (``maps`` itself comes back when neither
+    does)."""
+    n, h, w, c = maps.shape
+    out_h, out_w = int(size[0]), int(size[1])
+    out = maps
+    if out_h != h:
+        wh = _weights_on(h, out_h, maps.device)               # (H, h)
+        out = torch.matmul(wh, out.reshape(n, h, w * c)).reshape(
+            n, out_h, w, c)
+    if out_w != w:
+        ww = _weights_on(w, out_w, maps.device)               # (W, w)
+        out = torch.matmul(ww, out.reshape(n * out_h, w, c)).reshape(
+            n, out_h, out_w, c)
+    return out
 
 
 def upsample_cubic(maps: torch.Tensor, stride: int) -> torch.Tensor:
     """(N, h, w, C) float32 maps -> (N, h*stride, w*stride, C)."""
-    n, h, w, c = maps.shape
-    big_h, big_w = h * stride, w * stride
-    wh = _weights_on(h, big_h, maps.device)                   # (H, h)
-    ww = _weights_on(w, big_w, maps.device)                   # (W, w)
-    rows = torch.matmul(wh, maps.reshape(n, h, w * c))        # (N, H, w*C)
-    out = torch.matmul(ww, rows.reshape(n * big_h, w, c))     # (N*H, W, C)
-    return out.reshape(n, big_h, big_w, c)
+    _, h, w, _ = maps.shape
+    return resize_cubic(maps, (h * stride, w * stride))

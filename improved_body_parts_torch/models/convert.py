@@ -14,6 +14,11 @@ Flax names submodules by class and creation order (``ConvBlock_3``,
 ``Residual_0``...); :func:`flax_leaf_map` spells out that order for each
 module of :mod:`models.posenet`.  Conversion fails loudly on any Flax leaf
 left unused, any model tensor left unfilled, or any shape mismatch.
+
+An int8 tree of the JAX package's ``quantize_int8`` (each conv or dense
+kernel a ``{"int8_q", "int8_scale"}`` dict) converts into a model already
+in int8 storage (``utils.precision.quantize_int8``): the int8 values
+transposed like the kernel, the per-output-channel scales as they are.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.precision import Int8Layer
 from .layers import Backbone, ConvBlock, Hourglass, Residual, SELayer
 from .posenet import Features, PoseNet
 
@@ -100,7 +106,9 @@ def _features(out, m: Features, tp, fp):
 
 def flax_leaf_map(model: PoseNet) -> LeafMap:
     """Every tensor of ``model.state_dict()`` (bar BN's
-    ``num_batches_tracked``) → where it lives in the Flax tree."""
+    ``num_batches_tracked``) → where it lives in the Flax tree (an int8
+    layer's ``weight_q`` / ``weight_scale`` → its kernel's ``int8_q`` /
+    ``int8_scale``)."""
     out: LeafMap = {}
     _backbone(out, model.backbone, "backbone.", ("Backbone_0",))
     block = 0  # PoseNet-scope ConvBlock counter, in Flax creation order
@@ -117,6 +125,12 @@ def flax_leaf_map(model: PoseNet) -> LeafMap:
                     continue
                 _conv_block(out, sub, f"{tp}{name}.", (f"ConvBlock_{block}",))
                 block += 1
+    for name, m in model.named_modules():
+        if isinstance(m, Int8Layer):
+            coll, path, how = out.pop(f"{name}.weight")
+            out[f"{name}.weight_q"] = (coll, path + ("int8_q",), how)
+            out[f"{name}.weight_scale"] = (coll, path + ("int8_scale",),
+                                           "copy")
     return out
 
 
@@ -163,7 +177,8 @@ def flax_to_state_dict(variables: Mapping, model: PoseNet
                             f"for {key}")
             continue
         used.add((coll, path))
-        val = np.array(_TRANSFORMS[how](arr), dtype=np.float32, order="C")
+        dtype = np.int8 if key.endswith(".weight_q") else np.float32
+        val = np.array(_TRANSFORMS[how](arr), dtype=dtype, order="C")
         if tuple(val.shape) != tuple(ref.shape):
             problems.append(f"{key}: shape {tuple(val.shape)} from "
                             f"{coll}/{'/'.join(path)} != {tuple(ref.shape)}")

@@ -110,8 +110,9 @@ class PoseNet(nn.Module):
     def forward(self, images: torch.Tensor) -> List[List[torch.Tensor]]:
         """images: (N, H, W, 3) float in [0, 1] → [nstack][5] NHWC fp32."""
         # NHWC → NCHW view: channels-last strides, no copy; in the
-        # parameters' type (a no-op for the fp32 model)
-        x = images.permute(0, 3, 1, 2).to(self.backbone.stem.conv.weight.dtype)
+        # parameters' float type, the stem norm's (a no-op for the fp32
+        # model; bf16 under bf16 storage; int8 storage keeps norms fp32)
+        x = images.permute(0, 3, 1, 2).to(self.backbone.stem.bn.weight.dtype)
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(device_type=x.device.type, dtype=torch.bfloat16,
                             enabled=bf16):

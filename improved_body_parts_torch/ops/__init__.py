@@ -11,6 +11,7 @@ from .peaks import (
     PairStats,
     TopKPeaks,
     limb_pair_stats,
+    limb_topk_candidates,
     limb_topk_from_stats,
     topk_peaks,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "l1",
     "l2",
     "limb_pair_stats",
+    "limb_topk_candidates",
     "limb_topk_from_stats",
     "multi_task_loss",
     "topk_peaks",

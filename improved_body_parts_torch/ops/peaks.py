@@ -8,7 +8,9 @@ leading image axis (the JAX package vmaps its per-image functions):
 - :func:`limb_pair_stats`: the dense (L, K, K, S) limb sampling of every
   candidate A->B segment;
 - :func:`limb_topk_from_stats`: acceptance + top-M rank selection of the
-  accepted pairs (plain PyTorch here, as it is XLA code there).
+  accepted pairs (plain PyTorch here, as it is XLA code there);
+- :func:`limb_topk_candidates`: the two in a row, from the maps to the
+  ranked candidates.
 
 The first two run their hand-written kernels (``ops.cuda_peaks``) on a
 CUDA tensor and the kernels' plain PyTorch versions on a CPU tensor.
@@ -135,3 +137,25 @@ def limb_topk_from_stats(st: PairStats, peaks: TopKPeaks,
             for t in (slot_a, slot_b, sel_prior, sel_norm, valid))
     count = ok.sum(dim=(2, 3), dtype=torch.int32)
     return LimbCandidates(slot_a, slot_b, sel_prior, sel_norm, valid, count)
+
+
+def limb_topk_candidates(paf: torch.Tensor, peaks: TopKPeaks,
+                         image_size: torch.Tensor, *,
+                         limbs_from: Sequence[int], limbs_to: Sequence[int],
+                         num_samples: int, thre2: float,
+                         connect_ration: float, m_cap: int
+                         ) -> LimbCandidates:
+    """Dense pair sampling (:func:`limb_pair_stats`, its kernel on a CUDA
+    tensor) followed by acceptance and top-M rank selection
+    (:func:`limb_topk_from_stats`): the best ``m_cap`` accepted pairs of
+    each limb, in descending rank order.
+
+    :param paf: (N, H, W, L) full-resolution limb maps
+    :param image_size: (N,) valid decoded-map height per image
+    """
+    st = limb_pair_stats(paf, peaks.x_ref, peaks.y_ref,
+                         limbs_from=limbs_from, limbs_to=limbs_to,
+                         num_samples=num_samples, thre2=thre2)
+    return limb_topk_from_stats(st, peaks, image_size,
+                                limbs_from=limbs_from, limbs_to=limbs_to,
+                                connect_ration=connect_ration, m_cap=m_cap)

@@ -12,14 +12,18 @@ requests to the card (the port's own copies of the JAX package's
   waterfall (:data:`HOPS`), deadline and stall accounting.
 - ``warmup``  — start-up warmup of every (bucket shape × pow2 batch
   size) program.
+- ``artifacts`` — :func:`checkpoint_predictor`: a checkpoint (or a seeded
+  init) → a ``Predictor`` at a serve weight storage (fp32, bf16, int8).
 
 The JAX package's engine pool, process router and workers, cascade,
 client policy and capacity model are not ported yet (ROADMAP.md,
 Queue 1: serving beyond the batcher).
 """
+from .artifacts import cascade_predictors, checkpoint_predictor
 from .batcher import DeadlineExceeded, DynamicBatcher, ServerOverloaded
 from .metrics import HOPS, ServeMetrics
 from .warmup import pow2_batch_sizes, precompile
 
 __all__ = ["HOPS", "DeadlineExceeded", "DynamicBatcher", "ServeMetrics",
-           "ServerOverloaded", "pow2_batch_sizes", "precompile"]
+           "ServerOverloaded", "cascade_predictors", "checkpoint_predictor",
+           "pow2_batch_sizes", "precompile"]

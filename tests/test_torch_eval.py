@@ -13,7 +13,9 @@ on the CPU.
 - ``validation_oks`` on the planted stub maps of
   ``tests/test_evaluate_proxy.py`` gives the same metrics dict and the
   same detections as the JAX package, through the compact and the fused
-  lanes; ``process_image`` on both host lanes finds the planted person;
+  lanes; ``process_image`` on both host lanes finds the planted person,
+  and its host full-map protocol and a scale grid on the compact lane
+  give the JAX package's people;
 - ``draw_skeletons`` / ``limb_flow_bgr`` equal the JAX ones bit for bit,
   and ``run_demo`` draws the planted person on both lanes.
 """
@@ -300,7 +302,7 @@ def test_validation_oks_equals_jax(planted, lane):
 
 
 def test_process_image_lanes_find_the_planted_person(planted):
-    tpred, tparams, _, _ = _predictors(planted["maps"])
+    tpred, tparams, jpred, jparams = _predictors(planted["maps"])
     image = cv2.imread(os.path.join(planted["images"], "000000000001.jpg"))
     got = {lane: teval.process_image(tpred, image, tparams,
                                      use_native=False, **{lane: True})
@@ -313,11 +315,34 @@ def test_process_image_lanes_find_the_planted_person(planted):
         assert sum(p is not None for p in kps) == 17, lane
         whole[lane] = np.array(kps)
     assert np.abs(whole["fast"] - whole["compact"]).max() < 2.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.process_image(tpred, image, tparams, use_native=False)
+    # the host full-map protocol (neither flag), and a scale grid on the
+    # compact lane (predict_compact_ms), give the JAX package's people:
+    # keypoints within 1e-3 px, scores within 1e-4
+    from improved_body_parts_tpu.infer.evaluate import (
+        process_image as jprocess_image,
+    )
+
+    host = teval.process_image(tpred, image, tparams, use_native=False)
+    assert len(host) >= 1
+    _same_people(host, jprocess_image(jpred, image, jparams,
+                                      use_native=False))
     grid = tconfig.InferenceParams(scale_search=(0.5, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.process_image(tpred, image, grid, compact=True)
+    jgrid = InferenceParams(scale_search=(0.5, 1.0))
+    _same_people(
+        teval.process_image(tpred, image, grid, compact=True,
+                            use_native=False),
+        jprocess_image(jpred, image, jgrid, compact=True, use_native=False))
+
+
+def _same_people(got, want, tol=1e-3, score_tol=1e-4):
+    assert len(got) == len(want)
+    for (gk, gs), (wk, ws) in zip(sorted(got, key=lambda r: -r[1]),
+                                  sorted(want, key=lambda r: -r[1])):
+        assert gs == pytest.approx(ws, abs=score_tol)
+        for pg, pw in zip(gk, wk):
+            assert (pg is None) == (pw is None)
+            if pg is not None:
+                np.testing.assert_allclose(pg, pw, rtol=0, atol=tol)
 
 
 def test_validation_needs_pycocotools(planted, monkeypatch):

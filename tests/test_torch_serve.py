@@ -668,7 +668,8 @@ def test_predict_fast_peak_masks_match_jax(tiny_pair):
 
 def test_pipelined_inference_lanes_agree(warm_pred):
     """The pipelined stream over the compact, batched-compact and fused
-    lanes yields the same people per image, in input order."""
+    lanes yields the same people per image, in input order, for the
+    single-scale protocol and for a scale grid."""
     from improved_body_parts_torch.infer import pipelined_inference
 
     images = [_img(s) for s in (SIZE_A, SIZE_B, SIZE_A)]
@@ -680,6 +681,22 @@ def test_pipelined_inference_lanes_agree(warm_pred):
         assert len(got) == len(want)
         for g, w in zip(got, want):
             _assert_same_people(g, w)
+    # a scale grid streams through the grid dispatch on every lane, each
+    # image with the people of its own grid dispatch (the stub's mirror
+    # ghosts come in pairs of equal score: ordered by their keypoints)
+    def canonical(people):
+        return sorted(people, key=lambda r: (-round(r[1], 3), [
+            (-1.0, -1.0) if p is None else (round(p[0]), round(p[1]))
+            for p in r[0]]))
+
     grid = dataclasses.replace(warm_pred.params, scale_search=(0.5, 1.0))
-    with pytest.raises(NotImplementedError):
-        list(pipelined_inference(warm_pred, images, grid))
+    want = [decode_compact(warm_pred.predict_compact_ms(im, params=grid),
+                           grid, SK, use_native=False) for im in images]
+    for kw in (dict(compact=True), dict(compact_batch=2),
+               dict(device_decode=True)):
+        got = list(pipelined_inference(warm_pred, images, grid,
+                                       use_native=False, **kw))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert len(w) >= 1
+            _assert_same_people(canonical(g), canonical(w))
