@@ -130,12 +130,55 @@ released before phase 6, so phase 6's peak memory is its own;
    imgs/s at batch 8 of 480x640 at each dtype.  Gates: the fp32 AP on the
    12 equal to phase 7's, |AP(int8) - AP(bf16)| <= 0.01 on the 48 (on 24
    people one OKS match moves AP by ~0.004), int8 bytes <= 0.35 x fp32.  A ``[8 accuracy tiers]`` summary line closes the phase.
+9. the rest of training at full width.  (a) variants: each of
+   ``imhn_independent``, ``imhn_light``, ``imhn_wide`` (3 stacks), ``ae``
+   and ``imhn_final`` (``final_384``) at published width from a seeded
+   init in bf16 autocast, its parameter count checked; one
+   ``predict_decoded_batch`` at batch 2 of 480x640 (every decode kernel
+   must launch); 2 warm-up and 3 timed train steps at its config's input
+   (``final_384`` 384^2 batch 8, the others 512^2 batch 4) on phase 6's
+   drawn people, the focal counters set to 0 before the timed steps and
+   equal to scales x steps after; ms a step, imgs/s and peak memory; the
+   focal kernels held to their plain versions on the first timed step's
+   calls at ``ae``'s single scale and ``final_384``'s five (forward rel
+   1e-5, backward bit for bit), and their device ms a step at those
+   shapes, the inputs rotated over copies 3x the L2 so each call reads
+   HBM, beside the bound of those shapes' own bytes.  (b) GT made on the
+   device, through the ring: on phase 6's people at 512^2 batch 4, the
+   card's labels against the host ``Heatmapper``'s (max abs <= 1e-4);
+   then ``cli.train.train`` (``canonical``, one epoch of 12 steps on
+   phase 6's records, ``pipeline="shm"``, 4 spawn workers over
+   ``MemoryDataset`` records, ``device_gt`` 16, a validation set so the
+   eval ring runs, under a ``RunSupervisor`` so the rings are the
+   supervised ones): its ``device_prefetch`` feeds the steps; the focal
+   counts, the step ms, the data wait ms a step and imgs/s come from its
+   report, beside the bytes a batch on the wire and phase 6's sync
+   figures.  (c) distillation: ``cli.train.train(teacher=...)`` of
+   ``canonical_student`` at 512^2 batch 4 (one epoch of 12 steps, a
+   validation set) from a seeded ``canonical`` teacher (eval): 10 focal
+   launches a step each way (and 5 forward an eval batch), the
+   checkpoint's losses finite, the teacher's ``state_dict`` SHA-256 unchanged.  (d) SWA: 2 epochs of
+   ``cli.train.train(swa=True, swa_freq=2)`` resumed from phase 7's last
+   checkpoint: BN running stats bit for bit the checkpoint's,
+   ``swa_count`` 2, the SWA fields equal after a save and restore, and
+   the averaged weights' OKS AP on phase 7's 12 val images (fused lane)
+   beside phase 7's, gated at >= 0.5.  (e) supervisor: a supervised
+   ``cli.train.train`` (``synth_canonical``, 2 epochs, 16 of phase 7's
+   records) asked to stop inside epoch 1, then a second segment that
+   resumes from the committed epoch 0 and reaches the target: 2 segments
+   in ``RUN.json``, the step count that of an unstopped run; and the
+   card's own out-of-memory error (a 64 TiB allocation) classified
+   transient.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
 in the fused-lane evaluation of its checkpoint; the other paths' counts
 stand beside them in ``launches_by_path``, phase 8's multi-scale grid as
-``grid``; the decode kernels' times at phase 8's grid shape as
+``grid``, phase 9's paths as ``variants``, ``device_gt``, ``distill``
+and ``swa``; the focal kernels' device ms a step at ``ae``'s and
+``final_384``'s shapes as ``ae_shape_device_ms`` and
+``final_384_shape_device_ms`` (inputs rotated past the L2), with
+``*_same_inputs_ms``, ``*_bound_ms`` and ``*_bound_by`` beside them; the decode kernels' times at phase 8's grid shape as
 ``grid_shape_ms`` and ``grid_shape_device_ms``), the time every phase took,
 the ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
@@ -848,7 +891,9 @@ def focal_kernels(cfg, dev):
 
 def train_full_width(cfg, dev, smi):
     """Phase 6: ``canonical`` trains at full width on drawn synthetic
-    people; returns the focal kernels' launches in the 10 timed steps."""
+    people; returns the focal kernels' launches in the 10 timed steps and
+    what phase 9 reuses: the drawn records and the sync pipeline's step
+    ms, host data ms a batch, imgs/s and bytes a batch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1019,7 +1064,12 @@ def train_full_width(cfg, dev, smi):
           "a step): " + ", ".join(
               f"{e.key} {e.self_cpu_time_total / 1e3 / prof_steps:.2f} "
               f"({e.count // prof_steps})" for e in host[:10]))
-    return launches
+    gh, gw = sk.grid_shape
+    wire_bytes = bs * (sk.height * sk.width * 3 + gh * gw * 4
+                       + gh * gw * sk.num_layers * 4)
+    return launches, dict(records=records, step_ms=step_ms,
+                          data_ms=1e3 * data_s[0] / steps,
+                          imgs_s=steps * bs / wall_s, batch_bytes=wire_bytes)
 
 
 def same_payload(a, b) -> bool:
@@ -1315,7 +1365,8 @@ def learn_to_ap(dev, smi, work):
     print(f"[7 learn->AP] phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches, dict(checkpoint=latest, anno=anno, val_dir=val_dir,
-                          net=net, ap_fused=ap_device["AP"])
+                          net=net, ap_fused=ap_device["AP"],
+                          records=records)
 
 
 def time_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
@@ -1936,6 +1987,536 @@ def full_width_batcher(pred, rng, smi):
     return launches
 
 
+# ------------------------------------------------ 9. the rest of training
+# (variant, base config, stacks) -> published parameter count
+VARIANT_COUNTS = {
+    ("imhn_independent", "canonical", 4): 128_998_760,
+    ("imhn_light", "canonical", 4): 149_504_936,
+    ("imhn_wide", "canonical", 3): 152_156_430,
+    ("ae", "ae", 4): 138_861_512,
+    ("imhn_final", "final_384", 4): 227_066_536,
+}
+FOCAL_KERNELS = ("focal_fwd", "focal_bwd")
+RING_WORKERS, MAX_PEOPLE = 4, 16
+
+
+def focal_counts() -> dict:
+    from improved_body_parts_torch.ops import cuda_focal
+
+    return {"focal_fwd": cuda_focal.focal_fwd_kernel.launches,
+            "focal_bwd": cuda_focal.focal_bwd_kernel.launches}
+
+
+def reset_focal() -> None:
+    from improved_body_parts_torch.ops import cuda_focal
+
+    cuda_focal.focal_fwd_kernel.launches = 0
+    cuda_focal.focal_bwd_kernel.launches = 0
+
+
+def variant_config(variant, base, nstack):
+    import dataclasses
+
+    from improved_body_parts_torch.config import get_config
+
+    cfg = get_config(base)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, variant=variant, nstack=nstack),
+        train=dataclasses.replace(cfg.train,
+                                  nstack_weight=(1.0,) * nstack))
+
+
+def host_batches(cfg, records, n, batch, **kw):
+    """``n`` batches of ``batch`` of ``records`` rendered by the port's
+    host pipeline at ``cfg``'s input (epoch 0, uint8 wire)."""
+    from improved_body_parts_torch.data import MemoryDataset, batches
+
+    ds = MemoryDataset(records[:n * batch], cfg, seed=0)
+    out = list(batches(ds, batch, 0, pipeline="sync", wire="uint8", **kw))
+    check(len(out) == n, f"host batches: {len(out)} of {n}")
+    return out
+
+
+def timed_steps(step, state, device_batches, label):
+    """Run ``step`` on each batch; CUDA events around each.  Returns
+    (state, losses, ms a step (median), wall s)."""
+    import torch
+
+    from improved_body_parts_torch.train.step import to_device
+
+    dev = next(state.model.parameters()).device
+    losses, events = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in device_batches:
+        batch = to_device(batch, dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, *batch)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          f"{label}: a loss is not finite")
+    return (state, losses,
+            statistics.median(s.elapsed_time(e) for s, e in events), wall)
+
+
+def focal_at_shape(calls, ct, shape, smi):
+    """The focal kernels' device ms a step on ``calls`` (one step's
+    ``(pred, gt, mask, chan)``), beside the bound of these shapes' own
+    bytes and operations.  The step's inputs are rotated over copies that
+    together hold 3x the L2, so each call finds its inputs evicted from
+    L2 and reads them from HBM; the same inputs called again each time
+    are timed too (what the L2 saves).  Returns {kernel: {device_ms, same_inputs_ms,
+    bound_ms, bound_by, bytes}}."""
+    import math
+
+    import torch
+
+    from improved_body_parts_torch.ops import cuda_focal
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    step_bytes = sum(t.numel() * t.element_size()
+                     for call in calls for t in call[:3])
+    n = max(2, math.ceil(3 * l2 / step_bytes))
+    copies = [calls] + [[(p.clone(), g.clone(), m.clone(), c)
+                         for p, g, m, c in calls] for _ in range(n - 1)]
+    turn = [0]
+
+    def rotated(kernel, *extra):
+        def run():
+            step = copies[turn[0] % n]
+            turn[0] += 1
+            return [kernel(p, g, m, c, *extra) for p, g, m, c in step]
+        return run
+
+    pred_elems = sum(p.numel() for p, _, _, _ in calls)
+    in_bytes = sum((p.numel() + g.numel() + m.numel() + c.numel()) * 4
+                   for p, g, m, c in calls)
+    out_fwd = sum(p.shape[0] * 4 for p, _, _, _ in calls)
+    work = {"focal_fwd": (cuda_focal.focal_fwd_kernel, (), FOCAL_FWD_PASSES,
+                          in_bytes + out_fwd, pred_elems * 10),
+            "focal_bwd": (cuda_focal.focal_bwd_kernel, (ct,),
+                          FOCAL_BWD_PASSES,
+                          in_bytes + ct.numel() * 4 + pred_elems * 4,
+                          pred_elems * 16)}
+    out = {}
+    for k, (kernel, extra, passes, nbytes, ops) in work.items():
+        # one launch a call: the profiler missed the first window of each
+        # such measurement in one run, so it gets more windows
+        hbm = sum(device_ms(rotated(kernel, *extra), passes, len(calls),
+                            windows=5).values())
+        same = sum(device_ms(lambda: [kernel(*c, *extra) for c in calls],
+                             passes, len(calls), windows=5).values())
+        by_bytes = nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+        out[k] = dict(device_ms=hbm, same_inputs_ms=same, bound_ms=bound,
+                      bound_by="bytes" if by_bytes else "operations",
+                      bytes=nbytes)
+        print(f"[9a variants] {k} device ms a step at {shape}'s shapes "
+              f"({', '.join(str(tuple(c[0].shape)) for c in calls)}): "
+              f"{hbm:.4f} with the inputs rotated over {n} copies "
+              f"({n * step_bytes} B; L2 {l2} B), {same:.4f} on the same "
+              f"inputs each call (profiler); bound {bound:.4f} "
+              f"({out[k]['bound_by']}: {nbytes} B) [{smi}]")
+        check(hbm >= 0.9 * bound, f"{k} at {shape}'s shapes: {hbm:.4f} ms "
+              f"with the inputs rotated is below 0.9 x its bound "
+              f"{bound:.4f} ms: the timing does not read HBM")
+    del copies
+    return out
+
+
+def variants_at_full_width(dev, smi, records):
+    """Phase 9 (a)."""
+    import torch
+
+    from improved_body_parts_torch.infer import Predictor
+    from improved_body_parts_torch.models import build_model
+    from improved_body_parts_torch.ops import cuda_focal, losses
+    from improved_body_parts_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        step_decay_schedule,
+    )
+
+    rng = np.random.default_rng(9)
+    images = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+              for _ in range(2)]
+    decode, focal = dict.fromkeys(DECODE_KERNELS, 0), \
+        dict.fromkeys(FOCAL_KERNELS, 0)
+    focal_ms = {}
+    for (variant, base, nstack), want in VARIANT_COUNTS.items():
+        t0 = time.perf_counter()
+        cfg = variant_config(variant, base, nstack)
+        sk, tr = cfg.skeleton, cfg.train
+        model = build_model(cfg, device=dev, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == want, f"{variant}: {n_params} parameters, "
+              f"published {want}")
+        pred = Predictor(model, sk)
+        reset_launches()
+        out = pred.predict_decoded_batch(images)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(len(out) == 2 and all(np.isfinite(d.subset).all()
+                                    for d in out),
+              f"{variant}: malformed decode results")
+        for k, n in got.items():
+            check(n > 0, f"{variant}: {k} never launched serving")
+            decode[k] += n
+        del pred
+
+        bs, nscale = tr.batch_size_per_device, len(tr.scale_weight)
+        data = host_batches(cfg, records, 5, bs)
+        model.train()
+        opt = make_optimizer(model, cfg, step_decay_schedule(tr, 5))
+        state = create_train_state(model, cfg, opt)
+        step = make_train_step(model, cfg, opt)
+        state, _, _, _ = timed_steps(step, state, data[:2], variant)
+        calls, fused = [], losses.focal_l2_fused
+        losses.focal_l2_fused = first_calls(fused, nscale, calls)
+        reset_focal()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state, _, step_ms, wall = timed_steps(step, state, data[2:],
+                                                  variant)
+        finally:
+            losses.focal_l2_fused = fused
+        counts = focal_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for k, n in counts.items():
+            check(n == nscale * 3, f"{variant}: {k} launched {n} times in "
+                  f"3 steps, expected {nscale * 3}")
+            focal[k] += n
+        print(f"[9a variants] {variant} ({cfg.name}, {nstack} stacks): "
+              f"{n_params} parameters; predict_decoded_batch of 2 480x640 "
+              f"launched {got}; train at {sk.height}x{sk.width} batch {bs}: "
+              f"{step_ms:.2f} ms a step (median of 3, CUDA events), "
+              f"{3 * bs / wall:.2f} imgs/s, peak device memory "
+              f"{peak / 2**30:.2f} GiB, focal launches {counts} "
+              f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+        if variant in ("ae", "imhn_final"):
+            shape = "ae" if variant == "ae" else "final_384"
+            ct = torch.tensor(tr.nstack_weight, device=dev) * 0.25
+            hold_focal(calls, ct, f"{shape}'s first timed step",
+                       tag="[9a variants]")
+            focal_ms[shape] = focal_at_shape(calls, ct, shape, smi)
+        del model, state, opt, step, data, calls
+        torch.cuda.empty_cache()
+    return {**decode, **focal}, focal_ms
+
+
+def train_report_counts(label, run, train_steps, eval_batches, fwd_a_step,
+                        bwd_a_step):
+    """Check the focal counts of one ``cli.train.train`` run: the train
+    steps launch ``fwd_a_step`` / ``bwd_a_step`` each, an eval batch 5
+    forwards (one a scale)."""
+    counts = focal_counts()
+    want = {"focal_fwd": fwd_a_step * train_steps + 5 * eval_batches,
+            "focal_bwd": bwd_a_step * train_steps}
+    check(run["steps"] == train_steps, f"{label}: {run['steps']} train "
+          f"steps, expected {train_steps}")
+    check(counts == want, f"{label}: focal launches {counts}, expected "
+          f"{want} ({train_steps} steps, {eval_batches} eval batches)")
+    return counts
+
+
+def committed_losses(label, ckpt_dir):
+    """The last committed checkpoint's train and validation losses,
+    checked finite."""
+    from improved_body_parts_torch.train import latest_checkpoint
+    from improved_body_parts_torch.train.checkpoint import read_commit_meta
+
+    meta = read_commit_meta(latest_checkpoint(ckpt_dir)) or {}
+    losses_ = [meta.get("train_loss"), meta.get("metric_value")]
+    check(meta.get("metric") == "val_loss"
+          and all(isinstance(v, float) and np.isfinite(v) for v in losses_),
+          f"{label}: the committed train and val losses {losses_} (metric "
+          f"{meta.get('metric')}) are not finite")
+    return losses_
+
+
+def device_gt_through_ring(dev, smi, records, sync, work):
+    """Phase 9 (b)."""
+    import dataclasses
+
+    import torch
+
+    from improved_body_parts_torch.cli.train import train
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.data import MemoryDataset, batch_wire_format
+    from improved_body_parts_torch.ops.gt_device import make_gt_synthesizer
+    from improved_body_parts_torch.train import RunSupervisor
+
+    ckpt_dir = os.path.join(work, "ring")
+    cfg = get_config("canonical")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=ckpt_dir, keep_last_n=1))
+    sk, tr = cfg.skeleton, cfg.train
+    bs = tr.batch_size_per_device
+    host = host_batches(cfg, records, 1, bs)[0]
+    raw = host_batches(cfg, records, 1, bs, raw_gt=MAX_PEOPLE)[0]
+    synth = make_gt_synthesizer(sk)
+    labels = synth(torch.from_numpy(raw[2]).to(dev),
+                   torch.from_numpy(raw[3]).to(dev))
+    err = float((labels.cpu() - torch.from_numpy(host[2])).abs().max())
+    check(err <= 1e-4, f"device GT: max abs {err:.3g} from the host "
+          "Heatmapper's labels")
+    gt_ms = cuda_ms(lambda: synth(torch.from_numpy(raw[2]).to(dev),
+                                  torch.from_numpy(raw[3]).to(dev)), 10)
+    print(f"[9b device GT] the card's labels of a batch of {bs} within "
+          f"{err:.3g} (max abs) of the host Heatmapper's; synthesis "
+          f"{gt_ms:.3f} ms a batch of {bs} x {MAX_PEOPLE} people (CUDA "
+          f"events, copy of the joints included) [{smi}]")
+
+    names, shapes, dtypes = batch_wire_format(cfg, bs, raw_gt=MAX_PEOPLE,
+                                              wire="uint8")
+    wire_bytes = sum(int(np.prod(s)) * np.dtype(d).itemsize
+                     for s, d in zip(shapes, dtypes))
+    ds = MemoryDataset(records, cfg, seed=0)
+    val = MemoryDataset(records[:2 * bs], cfg, augment=False, seed=1)
+    sup = RunSupervisor(ckpt_dir, log_fn=lambda s: None)
+    sup.open_segment({"argv": ["phase 9b"]})
+    reset_focal()
+    t0 = time.perf_counter()
+    state, run = train(cfg, ds, 1, device=dev, seed=0, val_dataset=val,
+                       workers=RING_WORKERS, pipeline="shm", wire="uint8",
+                       device_gt=MAX_PEOPLE, supervisor=sup,
+                       log_fn=lambda s: None)
+    wall = time.perf_counter() - t0
+    steps = len(ds) // bs
+    counts = train_report_counts("device GT", run, steps, len(val) // bs,
+                                 5, 5)
+    losses_ = committed_losses("device GT", ckpt_dir)
+    with open(os.path.join(ckpt_dir, "RUN.json")) as f:
+        status = json.load(f)["segments"][-1]["status"]
+    check(status == "completed", f"device GT: the supervised segment "
+          f"ended {status}")
+    print(f"[9b device GT] cli.train.train of canonical, one epoch of "
+          f"{steps} steps, supervised, pipeline shm ({RING_WORKERS} spawn "
+          f"workers over MemoryDataset records, train and eval rings) "
+          f"through its device_prefetch, device_gt {MAX_PEOPLE}: median "
+          f"step {run['step_ms_median']:.2f} ms (CUDA events), data wait "
+          f"{run['data_wait_ms_per_step']:.2f} ms a step, "
+          f"{run['train_imgs_per_s']:.2f} imgs/s (its report), "
+          f"{wire_bytes} bytes a batch on the wire ({names}); train loss "
+          f"{losses_[0]:.4f}, val {losses_[1]:.4f}; focal launches "
+          f"{counts}; {wall:.1f} s with the rings' start and the save; "
+          f"phase 6 in this run (sync pipeline, host labels): step "
+          f"{sync['step_ms']:.2f} ms, host data {sync['data_ms']:.2f} ms a "
+          f"batch, {sync['imgs_s']:.2f} imgs/s, {sync['batch_bytes']} bytes "
+          f"a batch [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def distill_at_full_width(dev, smi, records, work):
+    """Phase 9 (c)."""
+    import dataclasses
+
+    import torch
+
+    from improved_body_parts_torch.cli.train import state_digest, train
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.data import MemoryDataset
+    from improved_body_parts_torch.models import build_model
+
+    ckpt_dir = os.path.join(work, "distill")
+    cfg = get_config("canonical_student")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size_per_device=4, checkpoint_dir=ckpt_dir,
+        keep_last_n=1))
+    bs = 4
+    teacher = build_model(get_config("canonical"), device=dev, seed=1)
+    sha = state_digest(teacher.state_dict())
+    ds = MemoryDataset(records, cfg, seed=0)
+    val = MemoryDataset(records[:2 * bs], cfg, augment=False, seed=1)
+    reset_focal()
+    state, run = train(cfg, ds, 1, device=dev, seed=0, val_dataset=val,
+                       teacher=teacher, log_fn=lambda s: None)
+    steps = len(ds) // bs
+    counts = train_report_counts("distill", run, steps, len(val) // bs,
+                                 10, 10)
+    losses_ = committed_losses("distill", ckpt_dir)
+    check(state_digest(teacher.state_dict()) == sha,
+          "distill: the teacher's state_dict changed")
+    print(f"[9c distill] cli.train.train of canonical_student "
+          f"({sum(p.numel() for p in state.model.parameters())} parameters)"
+          f" from a canonical teacher (seeded, eval) at 512x512 batch {bs}, "
+          f"one epoch of {steps} steps (sync pipeline): median step "
+          f"{run['step_ms_median']:.2f} ms (CUDA events), "
+          f"{run['train_imgs_per_s']:.2f} imgs/s, host data wait "
+          f"{run['data_wait_ms_per_step']:.2f} ms a step (its report); "
+          f"train loss {losses_[0]:.4f}, val {losses_[1]:.4f}; focal "
+          f"launches {counts}; the teacher's SHA-256 unchanged [{smi}]")
+    del teacher, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def swa_on_phase7(dev, smi, ctx, work):
+    """Phase 9 (d)."""
+    import dataclasses
+
+    import torch
+
+    from improved_body_parts_torch.cli import kernel_launches
+    from improved_body_parts_torch.cli.evaluate import load_predictor
+    from improved_body_parts_torch.cli.train import state_digest, train
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.data import MemoryDataset
+    from improved_body_parts_torch.infer.evaluate import validation_oks
+    from improved_body_parts_torch.train import (
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+
+    ckpt_dir = os.path.join(work, "swa")
+    cfg = get_config(SYNTH_AP["config"])
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=ckpt_dir, print_freq=20))
+    base = restore_checkpoint(ctx["checkpoint"])["model"]
+    stats = {k: v for k, v in base.items()
+             if k.endswith(("running_mean", "running_var"))}
+    ds = MemoryDataset(ctx["records"], cfg, augment=True,
+                       seed=SYNTH_AP["seed"])
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    state, report = train(cfg, ds, 2, device=dev, seed=SYNTH_AP["seed"],
+                          resume=ctx["checkpoint"], swa=True, swa_freq=2,
+                          log_fn=lambda s: None)
+    train_s = time.perf_counter() - t0
+    sd = state.model.state_dict()
+    moved = [k for k, v in stats.items() if not torch.equal(sd[k].cpu(), v)]
+    check(not moved, f"SWA: BN running stats moved: {moved[:3]}")
+    check(state.swa_count == 2, f"SWA: swa_count {state.swa_count}, the "
+          "schedule says 2 (start + the cycle's end)")
+    latest = latest_checkpoint(ckpt_dir)
+    saved = restore_checkpoint(latest)
+    names = dict(state.model.named_parameters())
+    check(saved["swa_count"] == 2
+          and saved["swa_start_step"] == state.swa_start_step
+          and state_digest(saved["swa_params"]) == state_digest(names)
+          and state_digest({k: saved["model"][k] for k in names})
+          == state_digest(state.swa_params),
+          "SWA: the checkpoint's SWA fields differ from the state's")
+    pred = load_predictor(SYNTH_AP["config"], latest, device=dev,
+                          boxsize=ctx["net"], params_dtype="fp32")
+    ap = validation_oks(pred, ctx["anno"], ctx["val_dir"],
+                        device_decode=True, use_native=True,
+                        results_dir=os.path.join(work, "results"),
+                        dump_name="synth_swa")["AP"]
+    after = kernel_launches()
+    counts = {k: after[k] - before[k] for k in after}
+    for k, n in counts.items():
+        check(n > 0, f"SWA: {k} never launched")
+    check(ap >= 0.5, f"SWA: averaged weights' AP {ap:.4f} < 0.5")
+    print(f"[9d SWA] {SYNTH_AP['config']}, 2 epochs (swa_freq 2, cyclic "
+          f"1e-5 -> 1e-6, BN frozen) from {ctx['checkpoint']}: "
+          f"{report['steps']} steps in {train_s:.1f} s, median step "
+          f"{report['step_ms_median']:.2f} ms; BN running stats bit for bit "
+          f"the checkpoint's; swa_count 2; the SWA fields equal after save "
+          f"and restore; OKS AP of the averaged weights {ap:.4f} (fused "
+          f"lane, {SYNTH_AP['val_images']} val images) beside phase 7's "
+          f"{ctx['ap_fused']:.4f}; launches {counts} [{smi}]")
+    del state, pred
+    torch.cuda.empty_cache()
+    return counts
+
+
+def supervised_segments(dev, smi, ctx, work):
+    """Phase 9 (e)."""
+    import dataclasses
+
+    import torch
+
+    from improved_body_parts_torch.cli.train import train
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.data import MemoryDataset
+    from improved_body_parts_torch.train import RunSupervisor
+    from improved_body_parts_torch.train.supervisor import classify_error
+
+    # the card's own out-of-memory error is a transient failure, as XLA's
+    # RESOURCE_EXHAUSTED is to the JAX supervisor
+    try:
+        torch.empty(1 << 46, dtype=torch.uint8, device=dev)  # 64 TiB
+        oom = None
+    except torch.cuda.OutOfMemoryError as e:
+        oom = f"{type(e).__name__}: {e}"
+    check(oom is not None and classify_error(oom) == "transient",
+          f"supervisor: the card's out-of-memory error {oom!r} is not "
+          "classified transient")
+    print(f"[9e supervisor] {oom.splitlines()[0][:160]!r} classified "
+          "transient")
+
+    ckpt_dir = os.path.join(work, "supervised")
+    cfg = get_config(SYNTH_AP["config"])
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=ckpt_dir, print_freq=2, keep_last_n=1))
+    records = ctx["records"][:16]
+    spe = len(records) // cfg.train.batch_size_per_device
+    sup = RunSupervisor(ckpt_dir, log_fn=lambda s: None)
+
+    class StopInEpoch1(MemoryDataset):
+        def sample(self, index, epoch=0, **kw):
+            if epoch == 1:
+                sup.request_stop()
+            return super().sample(index, epoch, **kw)
+
+    t0 = time.perf_counter()
+    sup.open_segment({"argv": ["phase 9e", "segment 0"]})
+    state, first = train(cfg, StopInEpoch1(records, cfg, seed=0), 2,
+                         device=dev, seed=0, supervisor=sup,
+                         log_fn=lambda s: None)
+    sup2 = RunSupervisor(ckpt_dir, log_fn=lambda s: None)
+    rec = sup2.open_segment({"argv": ["phase 9e", "segment 1"]})
+    state, second = train(cfg, MemoryDataset(records, cfg, seed=0), 2,
+                          device=dev, seed=0, supervisor=sup2,
+                          log_fn=lambda s: None)
+    with open(os.path.join(ckpt_dir, "RUN.json")) as f:
+        run = json.load(f)
+    statuses = [s["status"] for s in run["segments"]]
+    check(statuses == ["preempted", "completed"]
+          and rec["previous_end"] == "preemption",
+          f"supervisor: segments {statuses}, previous end "
+          f"{rec['previous_end']}")
+    check(run["segments"][1].get("resumed_epoch") == 0,
+          "supervisor: the second segment did not resume from epoch 0")
+    check(state.step == 2 * spe, f"supervisor: step {state.step}, an "
+          f"unstopped run takes {2 * spe}")
+    print(f"[9e supervisor] {SYNTH_AP['config']}, 2 epochs of {spe} steps: "
+          f"segment 0 stopped in epoch 1 after {first['steps']} steps "
+          f"(epoch 0 committed), segment 1 resumed from epoch 0 and ran "
+          f"{second['steps']} steps to the target; RUN.json segments "
+          f"{statuses}; final step {state.step} = an unstopped run's; "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+
+
+def rest_of_training(dev, smi, sync, ctx, work):
+    """Phase 9: (a)-(e).  Returns the launches by path and the focal
+    kernels' device ms at ``ae``'s and ``final_384``'s shapes."""
+    t0 = time.perf_counter()
+    variants, focal_ms = variants_at_full_width(dev, smi, sync["records"])
+    launches = {"variants": variants,
+                "device_gt": device_gt_through_ring(
+                    dev, smi, sync["records"], sync, work),
+                "distill": distill_at_full_width(dev, smi, sync["records"],
+                                                 work),
+                "swa": swa_on_phase7(dev, smi, ctx, work)}
+    supervised_segments(dev, smi, ctx, work)
+    print(f"[9 rest of training] phase took {time.perf_counter() - t0:.1f}"
+          " s")
+    return {"launches": launches, "focal_device_ms": focal_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2213,13 +2794,16 @@ def main() -> int:
           f" MiB once the cuBLAS workspaces are released")
 
     # ---------------------------------------- 6. training at full width
-    launches.update(train_full_width(cfg, dev, smi))
+    train_launches, sync_train = train_full_width(cfg, dev, smi)
+    launches.update(train_launches)
 
     # ------------------------------ 7. learn -> AP, 8. accuracy tiers
     work = tempfile.mkdtemp(prefix="chip_smoke_synth_ap_")
     try:
         ap_launches, trained = learn_to_ap(dev, smi, work)
         grid_launches, grid_times = accuracy_tiers(dev, smi, trained)
+        # --------------------------------- 9. the rest of training
+        rest = rest_of_training(dev, smi, sync_train, trained, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2247,6 +2831,9 @@ def main() -> int:
         by_path[k]["learn_to_ap"] = n
     for k, n in grid_launches.items():
         by_path[k]["grid"] = n
+    for path, counts in rest["launches"].items():
+        for k, n in counts.items():
+            by_path[k][path] = n
     launches = ap_launches
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k],
@@ -2257,6 +2844,13 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=None)
                for k, r in results.items()]
     for row in kernels:
+        for shape, times in rest["focal_device_ms"].items():
+            if row["name"] in times:
+                t = times[row["name"]]
+                row[f"{shape}_shape_device_ms"] = t["device_ms"]
+                row[f"{shape}_shape_same_inputs_ms"] = t["same_inputs_ms"]
+                row[f"{shape}_shape_bound_ms"] = t["bound_ms"]
+                row[f"{shape}_shape_bound_by"] = t["bound_by"]
         if row["name"] in grid_times:
             row["grid_shape_ms"], row["grid_shape_device_ms"] = \
                 grid_times[row["name"]]

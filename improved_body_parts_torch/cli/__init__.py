@@ -1,7 +1,14 @@
 """Entry points of the port, run as modules:
 
 - ``python -m improved_body_parts_torch.cli.train``: train with ``fit``
-  and the async checkpoint (the single-process path of ``tools/train.py``);
+  and the async checkpoint (the single-process path of ``tools/train.py``:
+  every model variant, the shm ring, GT made on the device, the SWA
+  stage, distillation and the run supervisor);
+- ``python -m improved_body_parts_torch.cli.swa_stage``: AP before and
+  after the SWA stage on a ``cli.synth_ap`` workdir
+  (``tools/swa_stage.py``);
+- ``python -m improved_body_parts_torch.cli.make_corpus``: COCO
+  annotations + images -> the HDF5 corpus (host only);
 - ``python -m improved_body_parts_torch.cli.evaluate``: COCO keypoint AP
   of a checkpoint, with pycocotools or the OKS evaluator;
 - ``python -m improved_body_parts_torch.cli.synth_ap``: the learn→AP

@@ -12,9 +12,12 @@ samples (counterpart of ``improved_body_parts_tpu/data/dataset.py``).
 Outputs are channel-last: image (H, W, 3), float32 in [0, 1] on
 ``wire="f32"`` or the warped uint8 pixels on ``wire="uint8"`` (normalised
 on the device by the train step); mask_miss (h, w, 1) and labels
-(h, w, num_layers) on the stride-4 grid.  Only the in-process ``"sync"``
-pipeline is ported; the shared-memory ring, the spawn pool and the
-device-GT ``sample_raw`` wait (ROADMAP).
+(h, w, num_layers) on the stride-4 grid, or, for GT made on the device
+(``sample_raw``, ``batches(raw_gt=N)``), the padded joints and the person
+mask in place of the labels.  ``batches`` runs in this process
+(``pipeline="sync"``) or over the shared-memory ring of persistent spawn
+workers (``"shm"``, ``data.shm_ring``); the JAX package's retired spawn
+pool (``"pool"``) is not ported.
 """
 from __future__ import annotations
 
@@ -104,18 +107,43 @@ class CocoPoseDataset:
         return (img, mask_miss, mask_all, joints,
                 tuple(meta["objpos"][0]), float(meta["scale_provided"][0]))
 
-    def sample(self, index: int, epoch: int = 0, wire: str = "f32"
-               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """One training sample, deterministic in (seed, epoch, index):
-        (image, mask_miss (h, w, 1), labels (h, w, num_layers))."""
+    def _augmented(self, index: int, epoch: int, wire: str = "f32",
+                   image_out: Optional[np.ndarray] = None):
         img, mask_miss, mask_all, joints, objpos, scale = self.read_raw(index)
         rng = np.random.default_rng((self.seed, epoch, index))
         aug = None if self.augment else AugmentParams.identity()
-        img, mask_miss, mask_all, joints = self.transformer.transform(
+        return self.transformer.transform(
             img, mask_miss, mask_all, joints, objpos, scale, aug=aug, rng=rng,
-            wire=wire)
+            wire=wire, image_out=image_out)
+
+    def sample(self, index: int, epoch: int = 0, wire: str = "f32",
+               image_out: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One training sample, deterministic in (seed, epoch, index):
+        (image, mask_miss (h, w, 1), labels (h, w, num_layers)).
+        ``image_out`` (uint8 wire) renders the image in place."""
+        img, mask_miss, mask_all, joints = self._augmented(
+            index, epoch, wire=wire, image_out=image_out)
         labels = self.heatmapper.create_heatmaps(joints, mask_all)
         return img, mask_miss[..., None], labels
+
+    def sample_raw(self, index: int, epoch: int = 0, max_people: int = 16,
+                   wire: str = "f32",
+                   image_out: Optional[np.ndarray] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The device-GT form of :meth:`sample`: the same augmentation,
+        returning (image, mask_miss (h, w, 1), joints (max_people,
+        num_parts, 3), mask_all (h, w, 1)); the labels are made on the
+        device (``ops.gt_device``).  Padding rows carry visibility 2;
+        people beyond ``max_people`` are dropped."""
+        img, mask_miss, mask_all, joints = self._augmented(
+            index, epoch, wire=wire, image_out=image_out)
+        padded = np.zeros((max_people, joints.shape[1], 3), np.float32)
+        padded[:, :, 2] = 2.0
+        n = min(len(joints), max_people)
+        padded[:n] = joints[:n]
+        return (img, mask_miss[..., None], padded,
+                mask_all.astype(np.float32)[..., None])
 
     def close(self):
         if self._file is not None:
@@ -168,19 +196,50 @@ def host_shard(indices: np.ndarray, process_index: int, process_count: int,
 
 def batches(dataset: CocoPoseDataset, batch_size: int, epoch: int,
             process_index: int = 0, process_count: int = 1,
-            pipeline: Optional[str] = None, wire: str = "f32"
+            pipeline: Optional[str] = None, wire: str = "f32",
+            raw_gt: int = 0, num_workers: int = 0, ring_slots: int = 0
             ) -> Iterator[Tuple[np.ndarray, ...]]:
-    """Yield batched (images, mask_miss, labels) host arrays for one epoch,
-    generated in this process (``pipeline="sync"``, the only transport
-    ported).  ``wire="uint8"`` ships the images as uint8 HWC, normalised
-    on the device by the train step (bit-identical to ``"f32"``)."""
-    if pipeline not in (None, "sync"):
+    """Yield batched (images, mask_miss, labels) host arrays for one epoch;
+    with ``raw_gt > 0``, (images, mask_miss, joints, mask_all) for GT made
+    on the device, ``raw_gt`` the ``max_people`` padding
+    (:meth:`CocoPoseDataset.sample_raw`).  ``wire="uint8"`` ships the
+    images as uint8 HWC, normalised on the device by the train step
+    (bit-identical to ``"f32"``).
+
+    ``pipeline`` (default: ``"shm"`` when ``num_workers > 0``, else
+    ``"sync"``): ``"sync"`` makes the samples in this process; ``"shm"``
+    spawns a ring of ``num_workers`` workers for this epoch
+    (``data.shm_ring.ShmRingInput``) and copies each batch out of it, so
+    the yielded arrays stay valid (a loop over many epochs should hold
+    one ``ShmRingInput`` and take its zero-copy ``batches(epoch)``).
+    Samples are deterministic in (seed, epoch, index): both transports
+    yield the same bits."""
+    if pipeline is None:
+        pipeline = "shm" if num_workers > 0 else "sync"
+    if pipeline == "pool":
         raise NotImplementedError(
-            f"input pipeline {pipeline!r} is not ported yet; only 'sync' is "
-            "(ROADMAP.md, queue 1: the shm ring)")
+            "input pipeline 'pool' (the JAX package's retired spawn pool) "
+            "is not ported; use 'shm' or 'sync' (ROADMAP.md, queue 1)")
+    if pipeline not in ("sync", "shm"):
+        raise ValueError(f"unknown input pipeline {pipeline!r}; use 'sync' "
+                         "or 'shm'")
+    if pipeline == "shm" and num_workers > 0:
+        from .shm_ring import ShmRingInput
+
+        ring = ShmRingInput(dataset, batch_size, num_workers, raw_gt=raw_gt,
+                            wire=wire, slots=ring_slots)
+        try:
+            for batch in ring.batches(epoch, process_index, process_count):
+                yield tuple(np.copy(x) for x in batch)
+                batch = None  # drop the view before close() unmaps
+        finally:
+            ring.close()
+        return
     perm = epoch_permutation(len(dataset), epoch, dataset.seed)
     shard = host_shard(perm, process_index, process_count, batch_size)
     for start in range(0, len(shard), batch_size):
-        samples = [dataset.sample(int(i), epoch, wire=wire)
-                   for i in shard[start: start + batch_size]]
+        idxs = [int(i) for i in shard[start: start + batch_size]]
+        samples = [dataset.sample_raw(i, epoch, max_people=raw_gt, wire=wire)
+                   if raw_gt > 0 else dataset.sample(i, epoch, wire=wire)
+                   for i in idxs]
         yield tuple(np.stack(col) for col in zip(*samples))

@@ -1,9 +1,8 @@
-"""The HDF5 training-corpus schema: the part of
-``improved_body_parts_tpu/data/hdf5_corpus.py`` that the synthetic fixture
-and the dataset need (``recode_visibility``, ``person_record``,
-``select_main_persons``, ``build_masks``, ``iter_records``,
-``write_record``), copied.  The COCO -> HDF5 builder is not ported yet
-(ROADMAP).
+"""The HDF5 training corpus (counterpart of
+``improved_body_parts_tpu/data/hdf5_corpus.py``): its schema and the
+COCO -> HDF5 builder (``load_coco_annotations``, ``build_coco_corpus``;
+the command line is ``cli.make_corpus``).  The builder runs on the host
+and needs h5py.
 
 Schema (reference: data/coco_masks_hdf5.py):
 
@@ -25,7 +24,8 @@ occluded) -> 0, v=0 (unlabeled) -> 2.
 from __future__ import annotations
 
 import json
-from typing import Dict, Iterator, List, Sequence, Tuple
+import os
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -173,3 +173,76 @@ def write_record(dataset_grp, images_grp, masks_grp, record: Dict, count: int,
     ds = dataset_grp.create_dataset("%07d" % count,
                                     data=strict_dumps(required))
     ds.attrs["meta"] = strict_dumps(record)
+
+
+def load_coco_annotations(anno_path: str) -> Tuple[Dict, Dict]:
+    """Stdlib parse of a person_keypoints_*.json: (image_id -> image
+    record, image_id -> its person annotations), both in file order (in
+    place of pycocotools' index, coco_masks_hdf5.py:306-309)."""
+    with open(anno_path) as f:
+        data = json.load(f)
+    person_ids = {c["id"] for c in data.get("categories", [])
+                  if c.get("name") == "person"} or {1}
+    imgs = {im["id"]: im for im in data["images"]}
+    anns: Dict[int, List[Dict]] = {i: [] for i in imgs}
+    for ann in data.get("annotations", []):
+        if ann.get("category_id", 1) in person_ids:
+            anns.setdefault(ann["image_id"], []).append(ann)
+    return imgs, anns
+
+
+def build_coco_corpus(anno_path: str, img_dir: str, out_train: str,
+                      out_val: str, image_size: int = 512,
+                      val_size: int = 100,
+                      limit: Optional[int] = None) -> Tuple[int, int]:
+    """COCO annotations + images -> the train and val HDF5 corpora
+    (coco_masks_hdf5.py:304-351): the first ``val_size`` images go to the
+    val corpus.  Masks are decoded by ``data.coco_masks`` (polygons,
+    uncompressed and compressed RLE), so no pycocotools is needed.
+    Returns (train_count, val_count)."""
+    import cv2
+    import h5py
+
+    from .coco_masks import ann_to_mask
+
+    imgs, anns_by_img = load_coco_annotations(anno_path)
+    ids = list(imgs.keys())
+    if limit is not None:
+        ids = ids[:limit]
+    tr = h5py.File(out_train, "w")
+    va = h5py.File(out_val, "w")
+    grps = {f: (f.create_group("dataset"), f.create_group("images"),
+                f.create_group("masks")) for f in (tr, va)}
+    counts = {tr: 0, va: 0}
+    try:
+        for image_index, img_id in enumerate(ids):
+            anns = anns_by_img.get(img_id, [])
+            image_rec = imgs[img_id]
+            persons = [person_record(a, image_size) for a in anns
+                       if a["iscrowd"] == 0]
+            is_val = image_index < val_size
+            records = list(iter_records(image_rec, img_id, image_index,
+                                        persons, "COCO", is_val))
+            if not records:
+                continue
+            fname = image_rec.get("file_name", "%012d.jpg" % img_id)
+            img = cv2.imread(os.path.join(img_dir, fname))
+            if img is None:
+                raise IOError(f"missing image {fname} in {img_dir}")
+            h, w = img.shape[:2]
+            person_masks = [ann_to_mask(a, h, w) for a in anns
+                            if a["iscrowd"] == 0]
+            crowd_masks = [ann_to_mask(a, h, w) for a in anns
+                           if a["iscrowd"] == 1]
+            nks = [a["num_keypoints"] for a in anns if a["iscrowd"] == 0]
+            mask_miss, mask_all = build_masks(img.shape[:2], person_masks,
+                                              nks, crowd_masks)
+            target = va if is_val else tr
+            for rec in records:
+                write_record(*grps[target], rec, counts[target], img,
+                             mask_miss, mask_all)
+                counts[target] += 1
+    finally:
+        tr.close()
+        va.close()
+    return counts[tr], counts[va]

@@ -1,4 +1,5 @@
-"""Flax → PyTorch weight conversion for the IMHN ``PoseNet``.
+"""Flax → PyTorch weight conversion for the IMHN ``PoseNet`` and its
+variants.
 
 Turns a Flax variables tree ``{"params": ..., "batch_stats": ...}`` of
 numpy arrays (as ``improved_body_parts_tpu`` saves or initialises it) into
@@ -12,7 +13,7 @@ this package's ``state_dict`` — the inverse of
 
 Flax names submodules by class and creation order (``ConvBlock_3``,
 ``Residual_0``...); :func:`flax_leaf_map` spells out that order for each
-module of :mod:`models.posenet`.  Conversion fails loudly on any Flax leaf
+module of :mod:`models.posenet`, for all six variants.  Conversion fails loudly on any Flax leaf
 left unused, any model tensor left unfilled, or any shape mismatch.
 
 An int8 tree of the JAX package's ``quantize_int8`` (each conv or dense
@@ -29,8 +30,25 @@ import torch
 from torch import nn
 
 from ..utils.precision import Int8Layer
-from .layers import Backbone, ConvBlock, Hourglass, Residual, SELayer
-from .posenet import Features, PoseNet
+from .layers import (
+    Backbone,
+    BackboneSimple,
+    ConvBlock,
+    ConvStem,
+    Hourglass,
+    HourglassAE,
+    HourglassFinal,
+    Residual,
+    SELayer,
+)
+from .posenet import (
+    Features,
+    PoseNet,
+    PoseNetAE,
+    PoseNetFinal,
+    PoseNetLight,
+    PoseNetWide,
+)
 
 # torch key -> (collection, flax path, transform)
 LeafMap = Dict[str, Tuple[str, Tuple[str, ...], str]]
@@ -104,27 +122,134 @@ def _features(out, m: Features, tp, fp):
         _se(out, head[2], f"{tp}heads.{j}.2.", fp + (f"SELayer_{j}",))
 
 
-def flax_leaf_map(model: PoseNet) -> LeafMap:
-    """Every tensor of ``model.state_dict()`` (bar BN's
-    ``num_batches_tracked``) → where it lives in the Flax tree (an int8
-    layer's ``weight_q`` / ``weight_scale`` → its kernel's ``int8_q`` /
-    ``int8_scale``)."""
-    out: LeafMap = {}
+def _backbone_simple(out, m: BackboneSimple, tp, fp):
+    _conv_block(out, m.stem, tp + "stem.", fp + ("ConvBlock_0",))
+    for i, name in enumerate(("res1", "res2", "res3")):
+        _residual(out, getattr(m, name), f"{tp}{name}.",
+                  fp + (f"Residual_{i}",))
+
+
+def _hourglass_final(out, m: HourglassFinal, tp, fp):
+    d = m.depth
+    for i in range(d):
+        _conv_block(out, m.skips[i], f"{tp}skips.{i}.",
+                    fp + (f"ConvBlock_{2 * i}",))
+        _conv_block(out, m.downs[i], f"{tp}downs.{i}.",
+                    fp + (f"ConvBlock_{2 * i + 1}",))
+    _conv_block(out, m.inner, tp + "inner.", fp + (f"ConvBlock_{2 * d}",))
+    for step in range(d):
+        base = 2 * d + 1 + 3 * step
+        _conv_block(out, m.lows[step], f"{tp}lows.{step}.",
+                    fp + (f"ConvBlock_{base}",))
+        for k in range(2):
+            _conv_block(out, m.refines[step][k], f"{tp}refines.{step}.{k}.",
+                        fp + (f"ConvBlock_{base + 1 + k}",))
+
+
+def _hourglass_ae(out, m: HourglassAE, tp, fp):
+    _conv(out, m.up1, tp + "up1.", fp + ("Conv_0",))
+    _conv(out, m.low1, tp + "low1.", fp + ("Conv_1",))
+    if m.nested:
+        _hourglass_ae(out, m.low2, tp + "low2.", fp + ("HourglassAE_0",))
+        _conv(out, m.low3, tp + "low3.", fp + ("Conv_2",))
+    else:
+        _conv(out, m.low2, tp + "low2.", fp + ("Conv_2",))
+        _conv(out, m.low3, tp + "low3.", fp + ("Conv_3",))
+
+
+class _Counter:
+    """Flax's per-scope creation counter of one submodule class."""
+
+    def __init__(self, name: str, start: int = 0):
+        self.name, self.n = name, start
+
+    def next(self) -> Tuple[str, ...]:
+        self.n += 1
+        return (f"{self.name}_{self.n - 1}",)
+
+
+def _merge_heads(out, heads, tp, blocks: _Counter):
+    """One stack's output heads in Flax's creation order: per scale the
+    prediction conv, then (non-final stacks) the two merge convs."""
+    for j, head in enumerate(heads):
+        for name in ("pred", "merge_pred", "merge_feat"):
+            sub = getattr(head, name)
+            if sub is not None:
+                _conv_block(out, sub, f"{tp}{j}.{name}.", blocks.next())
+
+
+def _posenet(out, model: PoseNet):
     _backbone(out, model.backbone, "backbone.", ("Backbone_0",))
-    block = 0  # PoseNet-scope ConvBlock counter, in Flax creation order
+    blocks = _Counter("ConvBlock")
     for i in range(model.nstack):
         _hourglass(out, model.hourglasses[i], f"hourglasses.{i}.",
                    (f"Hourglass_{i}",))
         _features(out, model.features[i], f"features.{i}.",
                   (f"Features_{i}",))
-        for j, head in enumerate(model.outs[i]):
-            tp = f"outs.{i}.{j}."
-            for name in ("pred", "merge_pred", "merge_feat"):
-                sub = getattr(head, name)
-                if sub is None:
-                    continue
-                _conv_block(out, sub, f"{tp}{name}.", (f"ConvBlock_{block}",))
-                block += 1
+        _merge_heads(out, model.outs[i], f"outs.{i}.", blocks)
+
+
+def _attended(out, model):
+    """The light, final and wide variants: backbone, then per stack the
+    hourglass, the SE gates, the per-scale heads and the output heads."""
+    blocks = _Counter("ConvBlock")
+    if isinstance(model.backbone, ConvStem):
+        for k, cb in enumerate(model.backbone.convs):
+            _conv_block(out, cb, f"backbone.convs.{k}.", blocks.next())
+    elif isinstance(model.backbone, BackboneSimple):
+        _backbone_simple(out, model.backbone, "backbone.",
+                         ("BackboneSimple_0",))
+    else:
+        _backbone(out, model.backbone, "backbone.", ("Backbone_0",))
+    ses = _Counter("SELayer")
+    for i in range(model.nstack):
+        hg = model.hourglasses[i]
+        if isinstance(hg, HourglassFinal):
+            _hourglass_final(out, hg, f"hourglasses.{i}.",
+                             (f"HourglassFinal_{i}",))
+        else:
+            _hourglass(out, hg, f"hourglasses.{i}.", (f"Hourglass_{i}",))
+        for j, se in enumerate(model.attention[i]):
+            _se(out, se, f"attention.{i}.{j}.", ses.next())
+        for j, head in enumerate(model.heads[i]):
+            convs = [head] if isinstance(head, ConvBlock) else list(head)
+            for k, cb in enumerate(convs):
+                tp = (f"heads.{i}.{j}." if isinstance(head, ConvBlock)
+                      else f"heads.{i}.{j}.{k}.")
+                _conv_block(out, cb, tp, blocks.next())
+        _merge_heads(out, model.outs[i], f"outs.{i}.", blocks)
+
+
+def _posenet_ae(out, model: PoseNetAE):
+    blocks = _Counter("ConvBlock")
+    for k, cb in enumerate(model.backbone.convs):
+        _conv_block(out, cb, f"backbone.convs.{k}.", blocks.next())
+    for i in range(model.nstack):
+        _hourglass_ae(out, model.hourglasses[i], f"hourglasses.{i}.",
+                      (f"HourglassAE_{i}",))
+        for k, cb in enumerate(model.features[i]):
+            _conv_block(out, cb, f"features.{i}.{k}.", blocks.next())
+        head = model.outs[i]
+        for name in ("pred", "merge_pred", "merge_feat"):
+            sub = getattr(head, name)
+            if sub is not None:
+                _conv_block(out, sub, f"outs.{i}.{name}.", blocks.next())
+
+
+def flax_leaf_map(model: nn.Module) -> LeafMap:
+    """Every tensor of ``model.state_dict()`` (bar BN's
+    ``num_batches_tracked``) → where it lives in the Flax tree (an int8
+    layer's ``weight_q`` / ``weight_scale`` → its kernel's ``int8_q`` /
+    ``int8_scale``), for any variant of :mod:`models.posenet`."""
+    out: LeafMap = {}
+    if isinstance(model, PoseNet):
+        _posenet(out, model)
+    elif isinstance(model, PoseNetAE):
+        _posenet_ae(out, model)
+    elif isinstance(model, (PoseNetLight, PoseNetFinal, PoseNetWide)):
+        _attended(out, model)
+    else:
+        raise TypeError(f"no Flax layout for {type(model).__name__}")
     for name, m in model.named_modules():
         if isinstance(m, Int8Layer):
             coll, path, how = out.pop(f"{name}.weight")
@@ -151,7 +276,7 @@ _TRANSFORMS = {
 }
 
 
-def flax_to_state_dict(variables: Mapping, model: PoseNet
+def flax_to_state_dict(variables: Mapping, model: nn.Module
                        ) -> Dict[str, torch.Tensor]:
     """Convert a Flax ``{"params", "batch_stats"}`` tree to ``model``'s
     state_dict.  Raises ``ValueError`` naming every unused Flax leaf,
@@ -193,7 +318,7 @@ def flax_to_state_dict(variables: Mapping, model: PoseNet
     return sd
 
 
-def load_flax_variables(model: PoseNet, variables: Mapping) -> PoseNet:
+def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load a Flax variables tree into ``model`` in place (strict)."""
     sd = flax_to_state_dict(variables, model)
     model.load_state_dict(sd, strict=True)
@@ -214,7 +339,7 @@ def _optax_states(opt_state):
         yield from _optax_states(child)
 
 
-def flax_train_state_to_torch(train_state, model: PoseNet) -> Dict:
+def flax_train_state_to_torch(train_state, model: nn.Module) -> Dict:
     """Turn a JAX ``TrainState`` (``improved_body_parts_tpu.train.state``:
     params, batch_stats, opt_state, step; read by attribute) into the
     port's training state, as numpy leaves:

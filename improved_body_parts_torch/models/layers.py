@@ -22,7 +22,9 @@ Two numerics details carry the Flax semantics over:
   would update with the unbiased variance.
 
 Weight init matches the JAX package (reference: models/posenet.py:119-139):
-conv N(0, 0.001), dense N(0, 0.01), biases zero, BN (1, 0).
+conv N(0, 0.001), dense N(0, 0.01), biases zero, BN (1, 0); the BN-free
+Associative-Embedding lineage draws its convs from N(0, 0.01)
+(``AE_CONV_STD``; a conv's ``init_std`` attribute overrides the default).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from torch import nn
 LEAKY_SLOPE = 0.01
 CONV_STD = 0.001
 DENSE_STD = 0.01
+AE_CONV_STD = 0.01
 
 
 def leaky_relu(x):
@@ -113,18 +116,24 @@ def same_padding(size: int, kernel: int, stride: int, dilation: int
 
 
 class ConvBlock(nn.Module):
-    """conv + optional BN + LeakyReLU (reference: layers_transposed.py:90-120).
+    """conv + optional BN + activation (reference:
+    layers_transposed.py:90-120).
 
     With BN the conv has no bias; without BN it does, as in the Flax model.
+    ``activation`` is ``"leaky"`` (LeakyReLU 0.01) or ``"relu"`` (the AE
+    lineage, ae_layer.py:53-54); ``init_std`` is the conv's init scale.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, use_bn: bool = True, relu: bool = True,
-                 dilation: int = 1):
+                 dilation: int = 1, activation: str = "leaky",
+                 init_std: float = CONV_STD):
         super().__init__()
         if stride == 1 and kernel_size % 2 == 0:
             raise ValueError("even stride-1 kernels need asymmetric SAME "
                              "padding; no IMHN layer uses one")
+        if activation not in ("leaky", "relu"):
+            raise ValueError(f"activation {activation!r} not leaky/relu")
         self.stride = stride
         self.kernel_size = kernel_size
         self.dilation = dilation
@@ -132,8 +141,10 @@ class ConvBlock(nn.Module):
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride=stride,
                               padding=pad, dilation=dilation,
                               bias=not use_bn)
+        self.conv.init_std = init_std
         self.bn = BatchNorm(cout) if use_bn else None
         self.relu = relu
+        self.activation = activation
 
     def forward(self, x):
         if self.stride > 1:
@@ -145,7 +156,9 @@ class ConvBlock(nn.Module):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
-        return leaky_relu(x) if self.relu else x
+        if not self.relu:
+            return x
+        return F.relu(x) if self.activation == "relu" else leaky_relu(x)
 
 
 class Residual(nn.Module):
@@ -259,16 +272,128 @@ class Hourglass(nn.Module):
         return scales[::-1]
 
 
+class BackboneSimple(nn.Module):
+    """Stride-4 stem without the dilated branch: 7x7/2 conv →
+    Residual(128) → maxpool/2 → Residual(128) → Residual(features)
+    (reference: layers_transposed_final.py:82-107)."""
+
+    def __init__(self, features: int = 256):
+        super().__init__()
+        self.stem = ConvBlock(3, 64, kernel_size=7, stride=2)
+        self.res1 = Residual(64, 128)
+        self.res2 = Residual(128, 128)
+        self.res3 = Residual(128, features)
+
+    def forward(self, x):
+        x = self.res2(max_pool_2x2(self.res1(self.stem(x))))
+        return self.res3(x)
+
+
+class ConvStem(nn.Module):
+    """Plain conv stem of the light and AE networks (posenet3.py:56-62,
+    ae_pose.py): 7x7/2 conv(64) → conv(128) → maxpool/2 → conv(128) →
+    conv(features); ``block`` holds the ConvBlock options (the AE stem is
+    BN-free with ReLU)."""
+
+    def __init__(self, features: int = 256, **block):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            ConvBlock(3, 64, kernel_size=7, stride=2, **block),
+            ConvBlock(64, 128, kernel_size=3, **block),
+            ConvBlock(128, 128, kernel_size=3, **block),
+            ConvBlock(128, features, kernel_size=3, **block)])
+
+    def forward(self, x):
+        x = self.convs[1](self.convs[0](x))
+        return self.convs[3](self.convs[2](max_pool_2x2(x)))
+
+
+class HourglassFinal(nn.Module):
+    """The 'final' hourglass cell (reference:
+    layers_transposed_final.py:111-199): all-conv blocks, a skip branch
+    without its activation, two refine convs after the upsample (the
+    second without activation) and LeakyReLU after the add.  Returns the
+    depth+1 scales, largest first, like :class:`Hourglass`."""
+
+    def __init__(self, depth: int = 4, features: int = 256,
+                 increase: int = 128):
+        super().__init__()
+
+        def ch(i):
+            return features + increase * i
+
+        self.depth = depth
+        self.skips = nn.ModuleList(ConvBlock(ch(i), ch(i), relu=False)
+                                   for i in range(depth))
+        self.downs = nn.ModuleList(ConvBlock(ch(i), ch(i + 1))
+                                   for i in range(depth))
+        self.inner = ConvBlock(ch(depth), ch(depth))
+        levels = list(reversed(range(depth)))
+        self.lows = nn.ModuleList(ConvBlock(ch(i + 1), ch(i)) for i in levels)
+        self.refines = nn.ModuleList(
+            nn.Sequential(ConvBlock(ch(i), ch(i)),
+                          ConvBlock(ch(i), ch(i), relu=False))
+            for i in levels)
+
+    def forward(self, x) -> List[torch.Tensor]:
+        skips = []
+        for skip, down in zip(self.skips, self.downs):
+            skips.append(skip(x))
+            x = down(max_pool_2x2(x))
+        y = self.inner(x)
+        scales = [y]
+        for step, i in enumerate(reversed(range(self.depth))):
+            refined = self.refines[step](
+                upsample_nearest_2x(self.lows[step](y)))
+            y = leaky_relu(skips[i] + refined)
+            scales.append(y)
+        return scales[::-1]
+
+
+class HourglassAE(nn.Module):
+    """The classic single-output hourglass of the Associative-Embedding
+    lineage (reference: models/ae_layer.py:68-91): 3x3 convs with bias
+    and ReLU, N(0, 0.01) init, nearest upsample, recursive; returns one
+    map at the input's scale."""
+
+    def __init__(self, depth: int = 4, features: int = 256,
+                 increase: int = 128):
+        super().__init__()
+        nf = features + increase
+
+        def conv(cin, cout):
+            c = nn.Conv2d(cin, cout, 3, padding=1, bias=True)
+            c.init_std = AE_CONV_STD
+            return c
+
+        self.up1 = conv(features, features)
+        self.low1 = conv(features, nf)
+        self.low2 = (HourglassAE(depth - 1, nf, increase) if depth > 1
+                     else conv(nf, nf))
+        self.nested = depth > 1
+        self.low3 = conv(nf, features)
+
+    def forward(self, x):
+        up1 = F.relu(self.up1(x))
+        low1 = F.relu(self.low1(max_pool_2x2(x)))
+        low2 = self.low2(low1)
+        if not self.nested:
+            low2 = F.relu(low2)
+        return up1 + upsample_nearest_2x(F.relu(self.low3(low2)))
+
+
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded init matching the JAX package's initializers: conv
-    N(0, 0.001), dense N(0, 0.01), biases zero, BN scale 1 / bias 0,
-    running stats (0, 1).  Draws on a CPU generator, so one seed gives the
-    same weights whatever device the model later moves to."""
+    N(0, 0.001) (the AE lineage's N(0, 0.01): a conv's ``init_std``),
+    dense N(0, 0.01), biases zero, BN scale 1 / bias 0, running stats
+    (0, 1).  Draws on a CPU generator, so one seed gives the same weights
+    whatever device the model later moves to."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                std = CONV_STD if isinstance(m, nn.Conv2d) else DENSE_STD
+                std = (getattr(m, "init_std", CONV_STD)
+                       if isinstance(m, nn.Conv2d) else DENSE_STD)
                 m.weight.copy_(torch.empty(m.weight.shape).normal_(
                     0.0, std, generator=gen))
                 if m.bias is not None:

@@ -1,6 +1,7 @@
 """Training of the port: schedules, state and SGD, the train/eval steps
-(with the focal-loss kernels on the card), the epoch loop and ``fit``, and
-checkpointing."""
+(with the focal-loss kernels on the card; GT made on the device), heatmap
+distillation, the epoch loop and ``fit``, checkpointing and the run
+supervisor."""
 from .checkpoint import (
     CheckpointManager,
     is_committed,
@@ -10,6 +11,7 @@ from .checkpoint import (
     restore_latest,
     save_checkpoint,
 )
+from .distill import bind_teacher, distill_alpha, make_distill_train_step
 from .loop import eval_epoch, fit, train_epoch
 from .schedule import (
     cyclic_swa_schedule,
@@ -27,9 +29,28 @@ from .state import (
     update_swa,
 )
 from .step import make_eval_step, make_train_step, normalize_images
+from .supervisor import (
+    RunSupervisor,
+    StopRequested,
+    SupervisorGaveUp,
+    chaos_kill_point,
+    classify_error,
+    milestone_eval,
+    reshard_on_topology_change,
+)
 
 __all__ = [
     "CheckpointManager",
+    "RunSupervisor",
+    "StopRequested",
+    "SupervisorGaveUp",
+    "bind_teacher",
+    "chaos_kill_point",
+    "classify_error",
+    "distill_alpha",
+    "make_distill_train_step",
+    "milestone_eval",
+    "reshard_on_topology_change",
     "ScheduledSGD",
     "TrainState",
     "create_train_state",

@@ -17,8 +17,9 @@ The on-disk protocol is the JAX package's:
 
 The payload holds the model ``state_dict`` (parameters and BN running
 stats), the optimizer's state (the momentum trace by parameter name and
-the schedule's update count), ``step``, ``epoch``, ``train_loss`` and
-``best_loss``.  It is read back with ``torch.load(weights_only=True)``.
+the schedule's update count), ``step``, ``epoch``, ``train_loss``,
+``best_loss`` and the SWA fields (``swa_params`` by parameter name,
+``swa_count``, ``swa_start_step``; None outside the SWA stage).  It is read back with ``torch.load(weights_only=True)``.
 
 :class:`CheckpointManager` splits a save in two, as the JAX manager does:
 
@@ -34,8 +35,7 @@ the schedule's update count), ``step``, ``epoch``, ``train_loss`` and
   the commit marker, then retention GC.  A writer failure is re-raised
   from the next ``save()`` or ``wait()``.
 
-Not ported yet (ROADMAP.md, Queue 1): the SWA fields of the payload, the
-device-topology stamp, and the registry metrics (``checkpoint_seconds``,
+Not ported yet (ROADMAP.md, Queue 1): the device-topology stamp, and the registry metrics (``checkpoint_seconds``,
 ``checkpoint_bytes``, ``checkpoints_retained``).  The manager's spans go
 to the port's ``obs.trace`` tracer and one ``checkpoint`` event a commit
 to its ``obs.events`` sink.
@@ -63,8 +63,8 @@ PAYLOAD_FILE = "state.pt"
 
 def _named_state(state: TrainState) -> Dict[str, torch.Tensor]:
     """Every tensor of the payload by a flat name: ``model/<key>`` for the
-    state_dict, ``momentum/<param name>`` for the trace, and
-    ``optimizer/count``."""
+    state_dict, ``momentum/<param name>`` for the trace,
+    ``optimizer/count``, and ``swa/<param name>`` for the SWA average."""
     model = state.model
     out = {f"model/{k}": v for k, v in model.state_dict().items()}
     opt = state.optimizer
@@ -73,7 +73,14 @@ def _named_state(state: TrainState) -> Dict[str, torch.Tensor]:
         for p, buf in zip(opt.params, opt.momentum):
             out[f"momentum/{names[p]}"] = buf
         out["optimizer/count"] = opt.count
+    for name, t in (state.swa_params or {}).items():
+        out[f"swa/{name}"] = t
     return out
+
+
+def _swa_fields(state: TrainState) -> Dict[str, Any]:
+    return {"swa_count": state.swa_count,
+            "swa_start_step": state.swa_start_step}
 
 
 def snapshot_to_host(tensors: Dict[str, torch.Tensor],
@@ -111,14 +118,23 @@ def snapshot_to_host(tensors: Dict[str, torch.Tensor],
 
 
 def _payload(host: Dict[str, torch.Tensor], step: int, epoch: int,
-             train_loss: float, best_loss: float) -> Dict[str, Any]:
-    """The checkpoint dict from a host snapshot of :func:`_named_state`."""
-    model = {k[len("model/"):]: v for k, v in host.items()
-             if k.startswith("model/")}
-    momentum = {k[len("momentum/"):]: v for k, v in host.items()
-                if k.startswith("momentum/")}
+             train_loss: float, best_loss: float,
+             swa: Dict[str, Any]) -> Dict[str, Any]:
+    """The checkpoint dict from a host snapshot of :func:`_named_state`
+    and the state's :func:`_swa_fields`."""
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in host.items()
+                if k.startswith(prefix)}
+
+    model, momentum, swa_params = part("model/"), part("momentum/"), \
+        part("swa/")
     count = host.get("optimizer/count")
+    has_swa = swa["swa_count"] is not None
     return {
+        "swa_params": swa_params if has_swa else None,
+        "swa_count": int(swa["swa_count"]) if has_swa else None,
+        "swa_start_step": (None if swa["swa_start_step"] is None
+                           else int(swa["swa_start_step"])),
         "model": model,
         "optimizer": (None if count is None else
                       {"momentum": momentum, "count": int(count)}),
@@ -208,7 +224,8 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
     stamp = _inflight_stamp(directory, epoch)
     open(stamp, "w").close()
     TorchSaveWriter().save(path, _payload(host, state.step, epoch,
-                                          train_loss, best_loss))
+                                          train_loss, best_loss,
+                                          _swa_fields(state)))
     _write_marker(path, _marker_meta(epoch, train_loss, best_loss,
                                      _payload_bytes(host),
                                      time_unix=round(time.time(), 3)))
@@ -223,8 +240,8 @@ def restore_checkpoint(path: str, state: Optional[TrainState] = None):
     """Load a checkpoint.  Without ``state``, return the payload dict
     (tensors on the CPU).  With ``state``, copy the payload into it on the
     state's own device — parameters and BN running stats, every momentum
-    buffer, the update count and the step — and return ``(state, meta)``
-    (resume semantics of train_distributed.py:149-197).
+    buffer, the update count, the step and the SWA fields — and return
+    ``(state, meta)`` (resume semantics of train_distributed.py:149-197).
 
     A checkpoint without optimizer state keeps the state's own.  ``meta``
     prefers the commit marker's ``best_loss``/``metric``/``metric_value``:
@@ -245,6 +262,12 @@ def restore_checkpoint(path: str, state: Optional[TrainState] = None):
                 buf.copy_(opt["momentum"][names[p]])
             state.optimizer.count.fill_(int(opt["count"]))
     state.step = int(payload["step"])
+    dev = next(model.parameters()).device
+    swa = payload.get("swa_params")
+    state.swa_params = (None if swa is None else
+                        {k: v.to(dev) for k, v in swa.items()})
+    state.swa_count = payload.get("swa_count")
+    state.swa_start_step = payload.get("swa_start_step")
     meta = {k: payload[k] for k in ("epoch", "train_loss", "best_loss")}
     marker = read_commit_meta(path)
     if marker:
@@ -391,12 +414,18 @@ class CheckpointManager:
                                args={"epoch": epoch}):
             host = snapshot_to_host(_named_state(state), self._buffers)
         snapshot_s = time.perf_counter() - t0
-        payload = _payload(host, state.step, epoch, train_loss, best_loss)
+        payload = _payload(host, state.step, epoch, train_loss, best_loss,
+                           _swa_fields(state))
         path = os.path.join(self.directory, f"epoch_{epoch}")
         base_meta = _marker_meta(epoch, train_loss, best_loss,
                                  _payload_bytes(host),
                                  **{"async": self.async_save})
         timings = {"wait_s": wait_s, "snapshot_s": snapshot_s}
+        with self._lock:
+            # an earlier run's commit of this epoch is being replaced:
+            # record_metric must wait for the new marker, not amend the
+            # old one while the writer recreates the directory
+            self._committed.discard(epoch)
         # before the write starts; removed after the marker lands
         open(_inflight_stamp(self.directory, epoch), "w").close()
         if self.async_save:
@@ -476,6 +505,9 @@ class CheckpointManager:
             serialize_s = time.perf_counter() - t0
             if self._commit_delay_s:
                 time.sleep(self._commit_delay_s)
+            from .supervisor import chaos_kill_point
+
+            chaos_kill_point("mid_ckpt_write")
             t0 = time.perf_counter()
             with tracer.span("commit", track="checkpoint",
                              args={"epoch": epoch}):

@@ -3,9 +3,10 @@
 and ``fit``; reference: train.py:104-206, train_distributed.py:225-379).
 
 Each host batch goes to the device through pinned memory with a
-``non_blocking`` copy (``train.step.to_device``), so the copy and the
-host's work on the next batch overlap the step the device is running; the
-JAX package uses ``parallel.prefetch`` for that.  The losses stay on the device and
+``non_blocking`` copy (``train.step.to_device``; a batch that
+``parallel.prefetch.device_prefetch`` already placed passes through), so
+the copy and the host's work on the next batch overlap the step the
+device is running.  The losses stay on the device and
 are read back once every ``print_freq`` steps (eval: ``readback_freq``
 batches), the reference's throttled readback (train_distributed.py:
 272-298).  ``fit`` runs the epochs with the async per-epoch checkpoint
@@ -24,6 +25,7 @@ from ..utils import AverageMeter, StepTimer
 from . import checkpoint as ckpt
 from .state import TrainState
 from .step import to_device
+from .supervisor import StopRequested, chaos_kill_point
 
 
 def _log_line(checkpoint_dir: str, text: str) -> None:
@@ -53,11 +55,17 @@ def train_epoch(state: TrainState, train_step: Callable,
                 should_stop: Optional[Callable[[], bool]] = None
                 ) -> Tuple[TrainState, float]:
     """Run one epoch over ``batches`` (host (images, mask_miss, labels)
-    arrays); returns (state, mean loss over samples).
+    arrays, or (images, mask_miss, joints, mask_all) for a step built with
+    ``device_gt=True``); returns (state, mean loss over samples).
 
-    ``mesh``, ``telemetry`` and ``should_stop`` accept only None here."""
-    for name, value in (("mesh", mesh), ("telemetry", telemetry),
-                        ("should_stop", should_stop)):
+    ``should_stop`` is the supervisor's stop predicate
+    (``train.supervisor.RunSupervisor.should_stop``), checked at each
+    readback window, where the device has just synced: True raises
+    :class:`train.supervisor.StopRequested`, which unwinds through
+    ``fit``'s flush of the in-flight checkpoint; the partial epoch is
+    dropped and a resume restarts it from the last committed checkpoint.
+    ``mesh`` and ``telemetry`` accept only None here."""
+    for name, value in (("mesh", mesh), ("telemetry", telemetry)):
         _only_none(name, value)
     print_freq = print_freq or config.train.print_freq
     dev = _model_device(state)
@@ -81,6 +89,11 @@ def train_epoch(state: TrainState, train_step: Callable,
                 log_fn(f"==> Epoch [{epoch}][{step_idx + 1}] "
                        f"loss {losses.val:.6f} ({losses.avg:.6f}) "
                        f"imgs/s {global_batch / max(dt, 1e-9):.1f}")
+            chaos_kill_point("window")
+            if should_stop is not None and should_stop():
+                raise StopRequested(
+                    f"stop requested at epoch {epoch} step {step_idx + 1} "
+                    "(window boundary)")
     for v, bs in pending:
         losses.update(float(v), bs)
     return state, losses.avg
@@ -96,6 +109,7 @@ def eval_epoch(state: TrainState, eval_step: Callable, batches: Iterable,
     losses = AverageMeter()
     pending = []
     for batch in batches:
+        chaos_kill_point("mid_eval")
         pending.append((eval_step(state, *to_device(batch, dev)),
                         batch[0].shape[0]))
         if len(pending) >= readback_freq:
@@ -140,10 +154,15 @@ def fit(state: TrainState, train_step: Callable, config: Config,
 
     Pass ``checkpoint_manager`` to share one manager across stages;
     otherwise fit builds one from the config's ``async_checkpoint`` and
-    retention knobs and closes it on exit.  ``mesh``, ``telemetry`` and
-    ``should_stop`` accept only None here (ROADMAP.md)."""
-    for name, value in (("mesh", mesh), ("telemetry", telemetry),
-                        ("should_stop", should_stop)):
+    retention knobs and closes it on exit.
+
+    ``should_stop`` (the supervisor's predicate) is checked at each
+    window readback (:func:`train_epoch`) and at each epoch boundary but
+    the last: there the epoch's save has begun, and the unwind flushes it
+    before :class:`train.supervisor.StopRequested` leaves ``fit``, so the
+    stop loses no completed epoch.  ``mesh`` and ``telemetry`` accept only
+    None here (ROADMAP.md)."""
+    for name, value in (("mesh", mesh), ("telemetry", telemetry)):
         _only_none(name, value, "fit")
     checkpoint_dir = checkpoint_dir or config.train.checkpoint_dir
     tr = config.train
@@ -159,7 +178,7 @@ def fit(state: TrainState, train_step: Callable, config: Config,
         for epoch in range(start_epoch, start_epoch + epochs):
             state, train_loss = train_epoch(
                 state, train_step, make_batches(epoch), config, epoch,
-                log_fn=log_fn)
+                log_fn=log_fn, should_stop=should_stop)
             _log_line(checkpoint_dir,
                       f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
             do_save = epoch % save_freq == 0 or epoch == last_epoch
@@ -169,6 +188,7 @@ def fit(state: TrainState, train_step: Callable, config: Config,
                 # only the snapshot blocks; the write overlaps the eval
                 # below and the next epoch's steps
                 manager.save(state, epoch, train_loss, best_loss)
+                chaos_kill_point("post_save")
             val_loss = None
             if do_eval:
                 with get_tracer().span("eval_epoch", track="eval",
@@ -187,6 +207,10 @@ def fit(state: TrainState, train_step: Callable, config: Config,
                 best_loss = min(best_loss, metric)
             if do_save:
                 manager.record_metric(epoch, metric_name, metric, best_loss)
+            if should_stop is not None and should_stop() \
+                    and epoch != last_epoch:
+                raise StopRequested(
+                    f"stop requested at epoch {epoch} boundary")
     except BaseException:
         # a crash must still flush the in-flight write (the run that died
         # is the one whose last checkpoint matters), without letting a

@@ -81,6 +81,12 @@ def apply_guarded_update(state: TrainState, loss: torch.Tensor,
     ``|g| >= max``), before the weight decay."""
     tr = config.train
     opt: ScheduledSGD = state.optimizer
+    for p in opt.params:
+        if p.grad is None:
+            # a parameter the loss does not reach (the independent
+            # variant's unused merges): JAX's gradient is 0 there, and
+            # the weight decay still moves it
+            p.grad = torch.zeros_like(p)
     grads = [p.grad for p in opt.params]
     ok = torch.isfinite(loss) & (loss <= tr.abnormal_loss_thre)
     gnorm = None
@@ -119,19 +125,33 @@ def make_train_step(model: nn.Module, config: Config,
 
     ``freeze_bn=True`` runs BatchNorm on its running averages without
     updating them (the SWA fine-tuning mode, train_distributed_SWA.py:
-    219-221).  ``device_gt``, ``mesh`` and ``rules`` (on-device GT
-    synthesis, the partitioned program) are not ported yet."""
-    if device_gt or mesh is not None or rules is not None:
+    219-221).  ``device_gt=True`` changes the signature to
+    ``(state, images, mask_miss, joints, mask_all)``: the labels are made
+    on the device inside the step (``ops.gt_device``) from the padded
+    joints, so only those and the masks cross the host→device copy.
+    ``mesh`` and ``rules`` (the partitioned program) are not ported yet."""
+    if mesh is not None or rules is not None:
         raise NotImplementedError(
-            "device_gt / mesh / rules are not ported yet (ROADMAP.md, "
-            "queue 1: ops/gt_device.py and multi-card training)")
+            "mesh / rules are not ported yet (ROADMAP.md, queue 1: "
+            "multi-card training)")
     dev = next(model.parameters()).device
+    synthesize = None
+    if device_gt:
+        from ..ops.gt_device import make_gt_synthesizer
 
-    def train_step(state: TrainState, images, mask_miss, gt):
+        synthesize = make_gt_synthesizer(config.skeleton)
+
+    def train_step(state: TrainState, images, mask_miss, *gt_args):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("train_step: the state holds another model or "
                              "optimizer than the step was built for")
-        images, mask_miss, gt = to_device((images, mask_miss, gt), dev)
+        images, mask_miss, *gt_args = to_device(
+            (images, mask_miss, *gt_args), dev)
+        if synthesize is not None:
+            joints, mask_all = gt_args
+            gt = synthesize(joints, mask_all)
+        else:
+            (gt,) = gt_args
         images = normalize_images(images)
         with torch.no_grad():
             bn_before = [b.clone() for b in _bn_buffers(model)]

@@ -108,4 +108,4 @@ def test_sync_batches_equal_over_two_epochs(fixtures):
             for a, b in zip(gb, wb):
                 np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(tds.batches(tset, 2, 0, pipeline="shm"))
+        next(tds.batches(tset, 2, 0, pipeline="pool"))

@@ -414,6 +414,7 @@ def test_unported_training_options_name_the_roadmap():
     opt = tstate.make_optimizer(model, cfg,
                                 tsched.step_decay_schedule(cfg.train, SPE))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_train_step(model, cfg, opt, device_gt=True)
+        tstep.make_train_step(model, cfg, opt, mesh=object(),
+                              rules=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         next(tds.batches(None, BATCH, 0, pipeline="pool"))
