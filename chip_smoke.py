@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
-learn->AP loop and the accuracy tiers of inference.
+learn->AP loop, the accuracy tiers of inference and serving beyond one
+batcher (replica pool, cascade, process router).
 
     python3 chip_smoke.py
 
@@ -169,13 +170,49 @@ released before phase 6, so phase 6's peak memory is its own;
    in ``RUN.json``, the step count that of an unstopped run; and the
    card's own out-of-memory error (a 64 TiB allocation) classified
    transient.
+10. serving beyond one batcher, on phase 7's checkpoint and val set.
+   (a) ``serve.EnginePool`` of 2 ``DynamicBatcher``s (wedge timeout 60 s):
+   phase 4's planted maps on two stub predictors (every person within
+   1 px, both replicas serving); then ``synth_canonical`` fp32 from
+   ``serve.checkpoint_predictor`` as 2 ``Predictor.device_replica("cuda")``
+   copies (max_batch 8): the 12 val images' OKS AP within 0.005 of phase
+   7's fused lane, 64 480x640 requests from 4 threads (imgs/s, e2e p50 /
+   p99, occupancy per replica), a second such burst with replica 0
+   stopped (drain 0 s) after 4 completions: every future resolves with
+   people, failovers >= 1, failed 0, submitted = completed + failed +
+   depth; the decode kernels' launches over the path equal the fused-lane
+   batches the replicas dispatched, then the three decode kernels bit for
+   bit against their plain versions on replica 0's first captured batch.
+   (b) ``serve.CascadeEngine`` of ``cascade_predictors`` (an int8 student
+   and an fp32 teacher, both phase 7's checkpoint, max_batch 1) under an
+   ``EscalationPolicy`` whose person-count threshold (or, where every
+   frame holds as many people, a score floor midway between two frames)
+   splits the val frames: the escalated frames are those whose direct
+   student signals trip the policy, each answer its tier's direct answer
+   (within 1e-3), decode launches = both tiers' batches; ms an image of
+   the cascade and of the teacher alone, and the cascade's AP.  (c)
+   ``serve.ProcessRouter`` of 2 spawned workers, each building
+   ``serve.artifacts:checkpoint_predictor`` on the card from a JSON spec
+   (the parent builds the kernels first; workers load them): the val
+   images' person tables equal bit for bit to an in-process pool's at
+   max_batch 1 (the workers keep torch's default, cuDNN TF32 allowed,
+   the script's pool runs full fp32); 32 requests from 4
+   threads; worker 0 SIGKILLed mid-flight in a second burst of 32: no
+   future lost, a fresh pid serving again, the postmortem verified, the
+   fleet scrape carrying both ``worker`` labels; worker start s, imgs/s,
+   respawn s, and the workers' decode launches after warmup, read from
+   their event shards: in each worker generation that reached its stop,
+   each decode kernel launched once a request served (one image a
+   ``predict_decoded`` call); the SIGKILLed generation's counts die
+   with it and are left out.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
 in the fused-lane evaluation of its checkpoint; the other paths' counts
 stand beside them in ``launches_by_path``, phase 8's multi-scale grid as
 ``grid``, phase 9's paths as ``variants``, ``device_gt``, ``distill``
-and ``swa``; the focal kernels' device ms a step at ``ae``'s and
+and ``swa``, phase 10's as ``pool``, ``cascade`` and
+``router_stopped_workers`` (the killed worker generation left out); the focal kernels' device ms a step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
 ``*_same_inputs_ms``, ``*_bound_ms`` and ``*_bound_by`` beside them; the decode kernels' times at phase 8's grid shape as
@@ -2517,6 +2554,528 @@ def rest_of_training(dev, smi, sync, ctx, work):
     return {"launches": launches, "focal_device_ms": focal_ms}
 
 
+# ------------------------------------- 10. serving beyond one batcher
+WEDGE_S = 60.0      # far above one dispatch's 51-133 ms of host time
+BURST_SHAPE = (480, 640)
+# a person table's keypoints are COCO's 17: the wire's width (its default,
+# 18, the skeleton's own part count, would return an 18th None)
+COCO_PARTS = 17
+
+
+def val_set(ctx):
+    """(ids, images, ground truth) of phase 7's held-out val set."""
+    import cv2
+
+    from improved_body_parts_torch.infer.evaluate import (
+        load_coco_ground_truth,
+    )
+
+    names, gts = load_coco_ground_truth(ctx["anno"])
+    ids = sorted(names)
+    images = [cv2.imread(os.path.join(ctx["val_dir"], names[i]))
+              for i in ids]
+    check(all(im is not None for im in images), "phase 10: a val image "
+          "did not load")
+    return ids, images, gts
+
+
+def oks_ap(ids, results, gts) -> float:
+    """The OKS AP of per-image people ``results`` (in ``ids`` order)."""
+    from improved_body_parts_torch.infer.oks import evaluate_oks
+
+    return evaluate_oks({i: gts.get(i, []) for i in ids},
+                        dict(zip(ids, results)))["AP"]
+
+
+def count_decode_chunks(pred, counts: list, idx: int) -> None:
+    """Count, in ``counts[idx]``, the fused-lane chunks ``pred`` runs (one
+    launch of each decode kernel a chunk)."""
+    run = pred._run_chunk
+
+    def counted(mode, *args):
+        if mode == "decode":
+            counts[idx] += 1
+        return run(mode, *args)
+
+    pred._run_chunk = counted
+
+
+def timed_drive(server, images, clients: int):
+    """:func:`drive` that also returns each request's e2e ms (submit to
+    its future's completion, host clock) and the wall seconds."""
+    import threading
+
+    lat, lock = [], threading.Lock()
+
+    class Timed:
+        def submit(self, image):
+            t0 = time.perf_counter()
+            fut = server.submit(image)
+
+            def done(_):
+                with lock:
+                    lat.append(1e3 * (time.perf_counter() - t0))
+
+            fut.add_done_callback(done)
+            return fut
+
+    t0 = time.perf_counter()
+    results = drive(Timed(), images, clients)
+    wall = time.perf_counter() - t0
+    return results, sorted(lat), wall
+
+
+def pct(sorted_ms, q: float) -> float:
+    return float(np.percentile(np.asarray(sorted_ms), q))
+
+
+def join_serve_threads(timeout_s: float = 60.0) -> None:
+    """Wait out the batchers' stage threads a drain with no time left
+    behind (a replica stopped abruptly may still finish a dispatch)."""
+    import threading
+
+    deadline = time.time() + timeout_s
+    for t in threading.enumerate():
+        if t.name.startswith(("serve-", "pool-")):
+            t.join(max(0.0, deadline - time.time()))
+
+
+def occupancy(before: dict, after: dict) -> tuple:
+    """(histogram, mean) of the flushes between two occupancy dicts."""
+    hist = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    hist = {k: v for k, v in sorted(hist.items()) if v}
+    n = sum(hist.values())
+    return hist, (sum(k * v for k, v in hist.items()) / n if n else 0.0)
+
+
+def replica_pool(dev, smi, ctx, stub_maps, planted, val):
+    """Phase 10(a): ``EnginePool`` over two ``DynamicBatcher``s.  Returns
+    the decode kernels' launches over the path's run and the replicas."""
+    import threading
+
+    import torch
+
+    from improved_body_parts_torch.config import (
+        InferenceModelParams,
+        get_config,
+    )
+    from improved_body_parts_torch.infer import Predictor
+    from improved_body_parts_torch.serve import (
+        DynamicBatcher,
+        EnginePool,
+        checkpoint_predictor,
+    )
+
+    sk = get_config(SYNTH_AP["config"]).skeleton
+    ids, images, gts = val
+    # planted people on two stub replicas (independent predictors: the
+    # stub network is no module to copy)
+    stubs = [Predictor(MirrorStub(sk, stub_maps), sk,
+                       model_params=InferenceModelParams(boxsize=HEIGHT),
+                       device=dev) for _ in range(2)]
+    requests = [np.zeros((HEIGHT, w, 3), np.uint8) for w in (WIDTH, 640) * 4]
+    with EnginePool([DynamicBatcher(p, max_batch=4, max_wait_ms=25)
+                     for p in stubs], wedge_timeout_s=WEDGE_S) as pool:
+        pool.warmup([(HEIGHT, WIDTH), (HEIGHT, 640)])
+        results = drive(pool, requests, clients=2)
+        served = [e.metrics.completed for e in pool.engines]
+    worst = max(planted_error(sk, people, planted,
+                              f"pool planted request {i}")
+                for i, people in enumerate(results))
+    check(all(n > 0 for n in served), f"pool planted: replicas served "
+          f"{served}")
+    print(f"[10a pool] planted maps through a 2-replica EnginePool: "
+          f"{len(requests)} requests, replicas served {served}, "
+          f"{len(planted)} people each within {worst:.3f} px")
+
+    base = checkpoint_predictor(SYNTH_AP["config"], ctx["checkpoint"],
+                                params_dtype="fp32", boxsize=ctx["net"],
+                                device=dev)
+    reps = [base.device_replica("cuda") for _ in range(2)]
+    del base
+    chunks = [0, 0]
+    for i, r in enumerate(reps):
+        count_decode_chunks(r, chunks, i)
+    lane_calls = []
+    engines = [DynamicBatcher(r, max_batch=8, max_wait_ms=25,
+                              max_queue=128) for r in reps]
+    rng = np.random.default_rng(10)
+    burst = [rng.integers(0, 256, (*BURST_SHAPE, 3), dtype=np.uint8)
+             for _ in range(64)]
+    sizes = sorted({im.shape[:2] for im in images} | {BURST_SHAPE})
+    pool = EnginePool(engines, wedge_timeout_s=WEDGE_S, drain_timeout_s=10.0)
+    with pool:
+        t0 = time.perf_counter()
+        info = pool.warmup(sizes)
+        warm_s = time.perf_counter() - t0
+        # replica 0's first served batch, as its lane decodes it
+        reps[0].decode_maps = first_calls(reps[0].decode_maps, 1,
+                                          lane_calls)
+        chunks[:] = [0, 0]
+        reset_launches()
+        got = drive(pool, images, clients=4)
+        ap = oks_ap(ids, got, gts)
+        before = [dict(e.metrics.occupancy) for e in engines]
+        _, lat, wall = timed_drive(pool, burst, clients=4)
+        occ = [occupancy(b, dict(e.metrics.occupancy))
+               for b, e in zip(before, engines)]
+        c0 = pool.metrics.completed
+
+        def stop_replica_0():
+            deadline = time.time() + 120
+            while pool.metrics.completed < c0 + 4 and time.time() < deadline:
+                time.sleep(0.002)
+            stop_state["in_flight"] = engines[0].metrics.depth
+            engines[0].stop(drain_timeout_s=0.0)
+
+        stop_state = {}
+        stopper = threading.Thread(target=stop_replica_0)
+        stopper.start()
+        again = drive(pool, burst, clients=4)
+        stopper.join(timeout=120)
+        counters = pool.counters()
+        m = pool.metrics
+        states = [s["state"] for s in pool.replica_states()]
+    join_serve_threads()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_chunks = sum(chunks)
+    check(len(again) == 64 and all(isinstance(r, list) for r in again),
+          "pool failover: a future resolved without people")
+    check(counters["failovers"] >= 1 and m.failed == 0,
+          f"pool failover: failovers {counters['failovers']}, failed "
+          f"{m.failed}")
+    check(m.submitted == m.completed + m.failed + m.depth and m.depth == 0,
+          f"pool: submitted {m.submitted} != completed {m.completed} + "
+          f"failed {m.failed} + depth {m.depth}")
+    check(abs(ap - ctx["ap_fused"]) <= 0.005,
+          f"pool: AP {ap:.4f} against phase 7's fused lane "
+          f"{ctx['ap_fused']:.4f}")
+    for k, v in launches.items():
+        check(v == n_chunks and v > 0, f"pool: {k} launched {v} times for "
+              f"{n_chunks} fused-lane batches dispatched")
+    print(f"[10a pool] synth_canonical fp32, 2 device_replica copies, "
+          f"max_batch 8: warmup of {info['bucket_shapes']} x "
+          f"{info['batch_sizes']} in {warm_s:.2f} s; {len(images)} val "
+          f"images: OKS AP {ap:.4f} (phase 7's fused lane "
+          f"{ctx['ap_fused']:.4f}) [{smi}]")
+    print(f"[10a pool] burst of 64 {BURST_SHAPE[0]}x{BURST_SHAPE[1]} "
+          f"requests from 4 threads: {64 / wall:.2f} imgs/s, e2e p50 "
+          f"{pct(lat, 50):.2f} ms, p99 {pct(lat, 99):.2f} ms; occupancy "
+          + "; ".join(f"replica {i} {h} (mean {mo:.3f})"
+                      for i, (h, mo) in enumerate(occ)) + f" [{smi}]")
+    print(f"[10a pool] second burst with replica 0 stopped (drain 0 s) "
+          f"after 4 completions, {stop_state.get('in_flight')} requests "
+          f"in flight on it: all 64 resolved with people, failovers "
+          f"{counters['failovers']}, resubmitted {counters['resubmitted']}, "
+          f"fenced {counters['fenced']}, replica states {states}; pool "
+          f"submitted {m.submitted} = completed {m.completed} + failed "
+          f"{m.failed} + depth {m.depth}")
+    print(f"[10a pool] decode kernel launches over the val run and both "
+          f"bursts {launches}, equal to the {n_chunks} fused-lane batches "
+          f"the replicas dispatched ({chunks})")
+    check(len(lane_calls) == 1, "pool: no decode_maps call captured")
+    hold_lane_call(sk, lane_calls[0], "replica 0's first served batch",
+                   smi, tag="[10a pool]")
+    del reps[0].decode_maps
+    return launches, reps
+
+
+def cascade_tiers(dev, smi, ctx, val):
+    """Phase 10(b): ``CascadeEngine`` of an int8 student and an fp32
+    teacher on phase 7's checkpoint.  Returns the decode launches."""
+    from improved_body_parts_torch.infer.decode import device_signals
+    from improved_body_parts_torch.infer.pipeline import device_decode_fn
+    from improved_body_parts_torch.serve import (
+        CascadeEngine,
+        DynamicBatcher,
+        EscalationPolicy,
+        cascade_predictors,
+    )
+
+    ids, images, gts = val
+    name, ckpt = SYNTH_AP["config"], ctx["checkpoint"]
+    student, teacher = cascade_predictors(name, name, ckpt, ckpt, "int8",
+                                          "fp32", boxsize=ctx["net"],
+                                          device=dev)
+    sd, td = device_decode_fn(student), device_decode_fn(teacher)
+    sigs, direct_s, direct_t = [], [], []
+    for im in images:
+        d = student.predict_decoded(im)
+        sigs.append(device_signals(d))
+        direct_s.append(sd(d, im))
+        direct_t.append(td(teacher.predict_decoded(im), im))
+    counts = sorted(s.n_people for s in sigs)
+    if counts[0] != counts[-1]:
+        # the person-count threshold that splits the frames most evenly
+        max_people = min(sorted(set(counts))[:-1], key=lambda v: abs(
+            sum(c > v for c in counts) - len(counts) / 2))
+        policy = EscalationPolicy(max_people=max_people)
+    else:
+        # every frame has the same count: the count threshold keeps all,
+        # the score floor (midway between two frames) splits them
+        scores = sorted(s.min_mean_score for s in sigs)
+        k = len(scores) // 2
+        policy = EscalationPolicy(max_people=counts[0],
+                                  score_floor=(scores[k - 1] + scores[k]) / 2)
+    reasons = [policy.reason(s) for s in sigs]
+    n_esc = sum(r is not None for r in reasons)
+    check(0 < n_esc < len(images), f"cascade: {n_esc} of {len(images)} "
+          f"frames escalate under {policy}")
+    want = [t if r is not None else s
+            for r, s, t in zip(reasons, direct_s, direct_t)]
+    chunks = [0, 0]
+    count_decode_chunks(student, chunks, 0)
+    count_decode_chunks(teacher, chunks, 1)
+    cascade = CascadeEngine.build(student, teacher, policy=policy,
+                                  max_batch=1, max_wait_ms=1)
+    with cascade:
+        cascade.warmup(sorted({im.shape[:2] for im in images}),
+                       batch_sizes=(1,))
+        chunks[:] = [0, 0]
+        reset_launches()
+        got, lat, wall = timed_drive(cascade, images, clients=1)
+        launches = read_launches()
+        chunks = list(chunks)
+    snap = cascade.metrics.snapshot()
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(len(g) == len(w), f"cascade frame {i}: {len(g)} people, its "
+              f"tier's direct answer {len(w)}")
+        for (gk, gs), (wk, ws) in zip(g, w):
+            worst = max([worst, abs(gs - ws)] + [
+                max(abs(a[0] - b[0]), abs(a[1] - b[1]))
+                for a, b in zip(gk, wk) if a is not None and b is not None])
+            check(all((a is None) == (b is None) for a, b in zip(gk, wk)),
+                  f"cascade frame {i}: other parts than its tier's answer")
+    check(worst <= 1e-3, f"cascade: answers off their tiers' direct "
+          f"answers by {worst}")
+    check(snap["escalated_teacher"] == n_esc
+          and snap["degraded_student_answer"] == 0 and snap["failed"] == 0
+          and snap["answered_student"] == len(images) - n_esc,
+          f"cascade: {snap} against {n_esc} predicted escalations")
+    for k, v in launches.items():
+        check(v == sum(chunks) and v > 0, f"cascade: {k} launched {v} "
+              f"times for {sum(chunks)} batches ({chunks})")
+    with DynamicBatcher(teacher, max_batch=1, max_wait_ms=1) as server:
+        server.warmup(sorted({im.shape[:2] for im in images}),
+                      batch_sizes=(1,))
+        teacher_only, t_lat, t_wall = timed_drive(server, images, clients=1)
+    ap = oks_ap(ids, got, gts)
+    print(f"[10b cascade] {policy}: {n_esc} of {len(images)} val frames "
+          f"escalate as the student's direct signals predict "
+          f"(escalation rate {snap['escalation_rate']:.4f}, by reason "
+          f"{snap['escalations']}); every answer its tier's direct answer "
+          f"within {worst:.3g}; ms an image, one client: cascade "
+          f"{1e3 * wall / len(images):.2f}, teacher only "
+          f"{1e3 * t_wall / len(images):.2f}; OKS AP: cascade {ap:.4f}, "
+          f"student {oks_ap(ids, direct_s, gts):.4f}, teacher "
+          f"{oks_ap(ids, teacher_only, gts):.4f}; decode launches "
+          f"{launches} = student + teacher batches {chunks} [{smi}]")
+    return launches
+
+
+def read_worker_generations(paths) -> list:
+    """One record a spawned worker generation in the event shards: its
+    pid, and, where it reached ``worker_stop``, the requests it served
+    and each decode kernel's launches after its warmup (``worker_stop``
+    minus ``worker_warm``); a generation killed before its stop has
+    ``stopped`` False and no counts."""
+    gens = []
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["event"] == "run_start":
+                    gen = {"pid": None, "stopped": False}
+                    gens.append(gen)
+                    warm = {"served": 0, "kernel_launches": {
+                        k: 0 for k in DECODE_KERNELS}}
+                elif rec["event"] == "worker_start":
+                    gen["pid"] = rec["pid"]
+                elif rec["event"] == "worker_warm":
+                    warm = rec
+                elif rec["event"] == "worker_stop":
+                    gen.update(stopped=True,
+                               served=rec["served"] - warm["served"],
+                               launches={k: rec["kernel_launches"][k]
+                                         - warm["kernel_launches"][k]
+                                         for k in DECODE_KERNELS})
+    return gens
+
+
+def process_router(dev, smi, ctx, val, reps, work):
+    """Phase 10(c): ``ProcessRouter`` of 2 spawned workers, each building
+    ``serve.artifacts:checkpoint_predictor`` on the card from a JSON
+    spec.  Returns the workers' decode launches."""
+    import signal
+
+    from improved_body_parts_torch.obs import Registry
+    from improved_body_parts_torch.obs.fleet import verify_postmortem
+    from improved_body_parts_torch.serve import (
+        DynamicBatcher,
+        EnginePool,
+        ProcessRouter,
+    )
+
+    ids, images, gts = val
+    spec = "improved_body_parts_torch.serve.artifacts:checkpoint_predictor"
+    kw = dict(config=SYNTH_AP["config"], checkpoint=ctx["checkpoint"],
+              params_dtype="fp32", boxsize=ctx["net"], device=dev.type)
+    sink = os.path.join(work, "router_events.jsonl")
+    sizes = sorted({im.shape[:2] for im in images} | {BURST_SHAPE})
+    rng = np.random.default_rng(11)
+    burst = [rng.integers(0, 256, (*BURST_SHAPE, 3), dtype=np.uint8)
+             for _ in range(32)]
+
+    # the in-process pool at the workers' batch (1)
+    with EnginePool([DynamicBatcher(r, max_batch=1, max_wait_ms=1)
+                     for r in reps], wedge_timeout_s=WEDGE_S) as pool:
+        pool.warmup(sizes, batch_sizes=(1,))
+        ref = drive(pool, images, clients=2)
+    reg = Registry()
+    t0 = time.perf_counter()
+    router = ProcessRouter(spec, num_workers=2, spec_kwargs=kw,
+                           sink_path=sink, restart_after_s=1.0,
+                           wedge_timeout_s=WEDGE_S, drain_timeout_s=30.0,
+                           max_image_hw=BURST_SHAPE, num_parts=COCO_PARTS,
+                           max_people=P_MAX, slots=40,
+                           warmup_timeout_s=300.0)
+    router.register_into(reg)
+    try:
+        router.start()
+        router.warmup(sizes, batch_sizes=[1])
+        start_s = time.perf_counter() - t0
+        pids = [w.worker_stats()["pid"] for w in router.workers]
+        got = drive(router, images, clients=2)
+        check(all(isinstance(r, tuple) and r[1] is not None for r in got),
+              "router: a result without its escalation signals")
+        same = sum(people == want for (people, _), want in zip(got, ref))
+        check(same == len(images), f"router: {len(images) - same} of "
+              f"{len(images)} val person tables differ from the in-process "
+              f"pool's at max_batch 1; first: {got[0][0][:1]} against "
+              f"{ref[0][:1]}")
+        _, lat, wall = timed_drive(router, burst, clients=4)
+        c0 = router.metrics.completed
+        kill = {}
+
+        def killer():
+            # kill mid-serve: after two completions, at a moment worker
+            # 0's flight ring ends in a pickup (a request on the card)
+            deadline = time.time() + 120
+            w0 = router.workers[0]
+
+            def serving():
+                recs = w0.flight_records()["records"]
+                return bool(recs) and recs[-1]["kind"] in ("pickup",
+                                                           "exec_done")
+
+            while time.time() < deadline and not (
+                    router.metrics.completed >= c0 + 2
+                    and w0.worker_info()["in_flight"] > 0 and serving()):
+                time.sleep(0.001)
+            kill["in_flight"] = w0.worker_info()["in_flight"]
+            kill["t"] = time.perf_counter()
+            os.kill(pids[0], signal.SIGKILL)
+
+        import threading
+
+        t = threading.Thread(target=killer)
+        t.start()
+        try:
+            again = drive(router, burst, clients=4)
+        except Exception as e:  # noqa: BLE001 -- reported as the gate
+            fail(f"router: a future failed across the SIGKILL: {e!r}")
+        t.join(timeout=120)
+        check(len(again) == 32 and all(isinstance(r, tuple) for r in again),
+              "router: a future resolved without people across the kill")
+        w0 = router.workers[0]
+        deadline = time.time() + 300
+        served0 = None
+        while time.time() < deadline:
+            st = w0.worker_stats()
+            if st["pid"] not in (None, pids[0]) and st["served"] > 0:
+                served0 = st
+                break
+            if w0.health()["running"]:
+                router.submit(burst[0]).result(timeout=300)
+            else:
+                time.sleep(0.05)
+        respawn_s = time.perf_counter() - kill["t"]
+        check(served0 is not None, "router: worker 0 did not serve again "
+              "from a fresh pid")
+        counters = router.counters()
+        m = router.metrics
+        pm = router.last_postmortems()[0]
+        ok, problems = verify_postmortem(pm)
+        check(ok, f"router: postmortem does not verify: {problems}")
+        text = reg.prometheus()
+        up = [ln for ln in text.splitlines()
+              if ln.startswith("fleet_worker_up{")]
+        check(any('worker="0"' in ln for ln in up)
+              and any('worker="1"' in ln for ln in up),
+              f"router: the fleet scrape lacks a worker label: {up}")
+        fleet = router.fleet_state()
+    finally:
+        router.stop(drain_timeout_s=60.0)
+    check(m.failed == 0 and counters["failovers"] >= 1,
+          f"router: failed {m.failed}, failovers {counters['failovers']}")
+    gens = read_worker_generations([f"{sink}.p{i + 1}" for i in range(2)])
+    stopped = [g for g in gens if g["stopped"]]
+    killed = [g["pid"] for g in gens if not g["stopped"]]
+    check(len(stopped) == 2 and killed == [pids[0]],
+          f"router: worker generations {gens}: expected two that stopped "
+          f"and the killed pid {pids[0]}")
+    for g in stopped:
+        for k, n in g["launches"].items():
+            check(n == g["served"] > 0, f"router: worker pid {g['pid']} "
+                  f"launched {k} {n} times after its warmup for "
+                  f"{g['served']} requests served")
+    launches = {k: sum(g["launches"][k] for g in stopped)
+                for k in DECODE_KERNELS}
+    fallbacks = sum(any((s.peak_overflow, s.cand_overflow,
+                         s.person_overflow))
+                    for _, s in got + again if s is not None)
+    print(f"[10c router] 2 spawned workers, checkpoint_predictor on cuda "
+          f"from a JSON spec: started and warmed in {start_s:.2f} s (pids "
+          f"{pids}); {len(images)} val person tables equal bit for bit to "
+          f"the in-process pool's at max_batch 1; burst of 32 from 4 "
+          f"threads {32 / wall:.2f} imgs/s, e2e p50 {pct(lat, 50):.2f} ms, "
+          f"p99 {pct(lat, 99):.2f} ms [{smi}]")
+    print(f"[10c router] SIGKILL of worker 0 (pid {pids[0]}) with "
+          f"{kill.get('in_flight')} requests in flight during a second "
+          f"burst of 32: 0 lost futures, failovers "
+          f"{counters['failovers']}, fenced {counters['fenced']}, respawns "
+          f"{counters['worker_respawns']}; worker 0 served again from pid "
+          f"{served0['pid']} {respawn_s:.2f} s after the kill; postmortem "
+          f"verified (in flight {pm['in_flight']}, last hop "
+          f"{pm['last_completed_hop']}); fleet conservation "
+          f"{fleet['conservation']}; router submitted {m.submitted}, "
+          f"completed {m.completed}, failed {m.failed}")
+    print(f"[10c router] decode kernel launches after warmup in the 2 "
+          f"worker generations that stopped (pids "
+          f"{[g['pid'] for g in stopped]}): {launches}, each kernel once a "
+          f"request served {[g['served'] for g in stopped]}; the killed "
+          f"generation (pid {killed[0]}) is left out, its counts died with "
+          f"it; results whose signals overflowed to the host decode: "
+          f"{fallbacks} of {len(got) + len(again)} [{smi}]")
+    return launches
+
+
+def serving_beyond_one_batcher(dev, smi, ctx, stub_maps, planted, work):
+    """Phase 10: (a)-(c).  Returns the decode launches by path."""
+    t0 = time.perf_counter()
+    val = val_set(ctx)
+    pool_launches, reps = replica_pool(dev, smi, ctx, stub_maps, planted,
+                                       val)
+    launches = {"pool": pool_launches,
+                "cascade": cascade_tiers(dev, smi, ctx, val)}
+    launches["router_stopped_workers"] = process_router(dev, smi, ctx, val,
+                                                        reps, work)
+    print(f"[10 serving] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2804,6 +3363,9 @@ def main() -> int:
         grid_launches, grid_times = accuracy_tiers(dev, smi, trained)
         # --------------------------------- 9. the rest of training
         rest = rest_of_training(dev, smi, sync_train, trained, work)
+        # -------------------------- 10. serving beyond one batcher
+        serving = serving_beyond_one_batcher(dev, smi, trained, stub_maps,
+                                             planted, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2831,7 +3393,8 @@ def main() -> int:
         by_path[k]["learn_to_ap"] = n
     for k, n in grid_launches.items():
         by_path[k]["grid"] = n
-    for path, counts in rest["launches"].items():
+    for path, counts in list(rest["launches"].items()) + list(
+            serving.items()):
         for k, n in counts.items():
             by_path[k][path] = n
     launches = ap_launches

@@ -48,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import math
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import cv2
@@ -402,13 +403,22 @@ class Predictor:
                    thre1: float, spec) -> torch.Tensor:
         """One same-shape chunk through the lane ``mode`` ("compact" or
         "decode"): upload, forward, extraction; (n, P) packed rows on the
-        device.  Marks the chunk's program warm."""
+        device.  Marks the chunk's program warm; the first run of a
+        program not yet warm is reported to ``obs.recompile`` (the port's
+        compile event) with the host seconds of its dispatch."""
+        key = (mode, tuple(imgs.shape[:3]), thre1, spec)
+        first = key not in self._warmed
+        t0 = time.perf_counter()
         batch = self._upload(imgs)
         valid_d = self._upload(valid)
         maps = self.ensemble_maps(batch)
         extract = self.decode_maps if mode == "decode" else self.compact_maps
         rows = extract(maps, valid_d[:, 0], valid_d[:, 1], thre1, spec)
-        self._warmed.add((mode, tuple(imgs.shape[:3]), thre1, spec))
+        self._warmed.add(key)
+        if first:
+            from ..obs.recompile import report_first_run
+
+            report_first_run(time.perf_counter() - t0, key=key[:2])
         return rows
 
     def _packed_batch_async(self, images_bgr: Sequence[np.ndarray],

@@ -1,5 +1,9 @@
-"""Telemetry of the port: the pieces the serving engine records through.
+"""Telemetry of the port (its own copies of the JAX package's ``obs/``
+modules, with torch counterparts where the JAX ones read XLA).
 
+- :mod:`registry` — counters / gauges / percentile histograms / span
+  timers with Prometheus + JSON exposition (``Registry``,
+  ``get_registry``, ``StepPhases`` data-wait/compute attribution);
 - :mod:`events`   — schema-versioned JSONL run-event sink (``EventSink``,
   ``read_events``, process-default ``set_sink`` / ``get_sink``) and the
   strict-JSON emitters (``strict_dumps``, ``strict_dump``);
@@ -8,12 +12,27 @@
   process-default ``set_tracer`` / ``get_tracer``);
 - :mod:`reqtrace` — request-scoped causal tracing with per-hop
   waterfalls (``ReqTrace``, ``NULL_NODE``, process-default
-  ``set_reqtrace`` / ``get_reqtrace``).
+  ``set_reqtrace`` / ``get_reqtrace``);
+- :mod:`http`     — background ``/metrics`` + ``/snapshot`` +
+  ``/healthz`` + ``/slo`` + ``/fleet`` endpoint (``MetricsServer``,
+  ``ROUTES``);
+- :mod:`recompile` — first runs of unwarmed lane shapes after warmup,
+  the port's compile event (``CompileWatch``);
+- :mod:`memory`   — the CUDA caching allocator's gauges, run watermark
+  and OOM forensics for one device (``DeviceMemory``);
+- :mod:`slo`      — declarative per-QoS-class latency/availability
+  objectives, multi-window burn rate, error budgets and alarm events
+  (``SLOTracker``, ``Objective``; served at ``/slo``);
+- :mod:`fleet`    — cross-process fleet observability over the shm
+  wire: worker-side telemetry publisher (``WorkerTelemetry``), the
+  parent-side merge registry (``FleetRegistry``; served at ``/fleet``)
+  and the crash flight recorder (``build_postmortem``,
+  ``verify_postmortem``).
 
-Copies of the JAX package's modules of the same names.  Its registry,
-SLO tracker, fleet plane, history store and HTTP endpoint are not ported
-yet (ROADMAP.md, Queue 1: telemetry); the serving engine takes a
-registry or an SLO tracker duck-typed.
+The JAX package's history store, health sentinel and run bundle are not
+ported yet (ROADMAP.md, Queue 1: telemetry); ``MetricsServer`` takes a
+health source duck-typed, and its ``/history`` and ``/query`` routes come
+with the history store.
 """
 from .events import (
     SCHEMA_VERSION,
@@ -25,6 +44,29 @@ from .events import (
     strict_dump,
     strict_dumps,
 )
+from .fleet import (
+    TELEM_VERSION,
+    FleetRegistry,
+    WorkerTelemetry,
+    build_postmortem,
+    decode_telem,
+    flow_id,
+    read_block,
+    read_flight_records,
+    verify_postmortem,
+)
+from .http import ROUTES, MetricsServer
+from .memory import DeviceMemory
+from .recompile import COMPILE_EVENT, CompileWatch
+from .registry import (
+    INPUT_BOUND_FRAC,
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    StepPhases,
+    get_registry,
+)
 from .reqtrace import (
     NULL_NODE,
     NullReqTrace,
@@ -32,6 +74,7 @@ from .reqtrace import (
     get_reqtrace,
     set_reqtrace,
 )
+from .slo import Objective, SLOTracker, default_objectives
 from .trace import (
     NullTraceRecorder,
     TraceRecorder,
@@ -40,8 +83,14 @@ from .trace import (
 )
 
 __all__ = [
-    "NULL_NODE", "SCHEMA_VERSION", "EventSink", "NullReqTrace", "NullSink",
-    "NullTraceRecorder", "ReqTrace", "TraceRecorder", "get_reqtrace",
-    "get_sink", "get_tracer", "read_events", "set_reqtrace", "set_sink",
-    "set_tracer", "strict_dump", "strict_dumps",
+    "COMPILE_EVENT", "INPUT_BOUND_FRAC", "NULL_NODE", "ROUTES",
+    "SCHEMA_VERSION", "TELEM_VERSION", "CompileWatch", "Counter",
+    "DeviceMemory", "EventSink", "FleetRegistry", "Gauge", "Histogram",
+    "MetricsServer", "NullReqTrace", "NullSink", "NullTraceRecorder",
+    "Objective", "Registry", "ReqTrace", "SLOTracker", "StepPhases",
+    "TraceRecorder", "WorkerTelemetry", "build_postmortem", "decode_telem",
+    "default_objectives", "flow_id", "get_registry", "get_reqtrace",
+    "get_sink", "get_tracer", "read_block", "read_events",
+    "read_flight_records", "set_reqtrace", "set_sink", "set_tracer",
+    "strict_dump", "strict_dumps", "verify_postmortem",
 ]

@@ -1,6 +1,6 @@
 """Dynamic-batching inference serving: the path from concurrent user
 requests to the card (the port's own copies of the JAX package's
-``serve/batcher.py``, ``serve/metrics.py`` and ``serve/warmup.py``).
+``serve/`` modules).
 
 - ``batcher`` — :class:`DynamicBatcher`: shape-bucketed coalescing,
   ``max_batch``/``max_wait_ms`` flush, bounded admission with explicit
@@ -13,17 +13,42 @@ requests to the card (the port's own copies of the JAX package's
 - ``warmup``  — start-up warmup of every (bucket shape × pow2 batch
   size) program.
 - ``artifacts`` — :func:`checkpoint_predictor`: a checkpoint (or a seeded
-  init) → a ``Predictor`` at a serve weight storage (fp32, bf16, int8).
+  init) → a ``Predictor`` at a serve weight storage (fp32, bf16, int8);
+  :func:`cascade_predictors`: the cascade's (student, teacher) pair.
+- ``cascade`` — :class:`CascadeEngine`: two-tier serving — a student
+  lane answers first, the fused decode payload's free escalation
+  signals (:class:`EscalationPolicy`) route hard frames to the teacher
+  as a second submit on the same machinery.
+- ``pool``    — :class:`EnginePool`: N shared-nothing batcher replicas
+  behind a health-checked router — least-loaded routing, circuit
+  breaking, fencing and transparent failover of in-flight work.
+- ``breaker`` — :class:`CircuitBreaker`: sliding-window failure-rate
+  breaker with half-open probing.
+- ``router`` / ``worker`` — :class:`ProcessRouter` +
+  :class:`ProcessWorkerEngine`: the pool's replicas as spawned worker
+  PROCESSES over the shared-memory wire (images in, fixed-shape person
+  tables out, no pickling), SIGKILL-survivable, same engine contract.
+- ``policy``  — :class:`PolicyClient` + :func:`submit_with_retry`:
+  client-side deadlines, jittered retry on ``ServerOverloaded``, hedged
+  dispatch for tail latency.
 
-The JAX package's engine pool, process router and workers, cascade,
-client policy and capacity model are not ported yet (ROADMAP.md,
-Queue 1: serving beyond the batcher).
+The JAX package's ``capacity`` model (fitted from its telemetry history
+store) is not ported yet (ROADMAP.md, Queue 1: telemetry).
 """
 from .artifacts import cascade_predictors, checkpoint_predictor
 from .batcher import DeadlineExceeded, DynamicBatcher, ServerOverloaded
+from .breaker import CircuitBreaker
+from .cascade import CascadeEngine, CascadeMetrics, EscalationPolicy
 from .metrics import HOPS, ServeMetrics
+from .policy import PolicyClient, PolicyStats, jittered_backoff, submit_with_retry
+from .pool import EnginePool
+from .router import ProcessRouter, ProcessWorkerEngine
 from .warmup import pow2_batch_sizes, precompile
 
-__all__ = ["HOPS", "DeadlineExceeded", "DynamicBatcher", "ServeMetrics",
-           "ServerOverloaded", "cascade_predictors", "checkpoint_predictor",
-           "pow2_batch_sizes", "precompile"]
+__all__ = ["HOPS", "CascadeEngine", "CascadeMetrics", "CircuitBreaker",
+           "DeadlineExceeded", "DynamicBatcher", "EnginePool",
+           "EscalationPolicy", "PolicyClient", "PolicyStats",
+           "ProcessRouter", "ProcessWorkerEngine",
+           "ServeMetrics", "ServerOverloaded", "cascade_predictors",
+           "checkpoint_predictor", "jittered_backoff",
+           "pow2_batch_sizes", "precompile", "submit_with_retry"]

@@ -6,8 +6,8 @@ checkpoint of the port's ``train.checkpoint`` (or a seeded init) and
 applies the weight storage through ``utils.precision.apply_serve_dtype``,
 the same construction site the evaluate CLI uses.
 :func:`cascade_predictors` is the two-tier wiring: a cheap-storage
-student under a full-precision teacher (the cascade engine itself is
-not ported yet: ROADMAP.md, Queue 1, serving beyond the batcher).
+student under a full-precision teacher, which ``serve.cascade
+.CascadeEngine.build`` wires into its two tiers.
 """
 from __future__ import annotations
 

@@ -162,11 +162,11 @@ class DynamicBatcher:
         # flush behavior deterministic for tests.
         self.eager_idle_flush = eager_idle_flush
         self.metrics = metrics or ServeMetrics()
-        # optional SLO wiring, duck-typed: any object with
-        # record(qos_class, latency_s, error=...) (the JAX package's
-        # obs.slo.SLOTracker) sees every finished request under this
-        # engine's QoS class.  Attach at ONE layer per deployment — a
-        # layer above an slo-wired batcher would double-count.
+        # optional SLO wiring: an obs.slo.SLOTracker (or any object with
+        # record(qos_class, latency_s, error=...)) sees every finished
+        # request under this engine's QoS class.  Attach at ONE layer per
+        # deployment — a layer above an slo-wired batcher would
+        # double-count.
         self._slo = slo
         self._qos_class = qos_class
         if registry is not None:

@@ -185,10 +185,9 @@ class ServeMetrics:
     # --------------------------------------------------------- telemetry
     def register_into(self, registry, prefix: str = "serve"
                       ) -> "ServeMetrics":
-        """Export every signal through a shared registry, duck-typed: any
+        """Export every signal through a shared ``obs.Registry`` (or any
         object with ``register_collector(fn)``, where ``fn()`` returns
-        :meth:`collect`'s samples (the JAX package's ``obs.Registry``
-        has that method; the port's is not ported yet).
+        :meth:`collect`'s samples).
 
         Registered as a scrape-time collector rather than mirrored
         metric objects: the counters already live behind this object's
