@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
-learn->AP loop, the accuracy tiers of inference and serving beyond one
-batcher (replica pool, cascade, process router).
+learn->AP loop, the accuracy tiers of inference, serving beyond one
+batcher (replica pool, cascade, process router), and live video streams
+with the run telemetry.
 
     python3 chip_smoke.py
 
@@ -105,11 +106,11 @@ released before phase 6, so phase 6's peak memory is its own;
    (a) the scale x rotation grids single-scale, scale_search (0.8, 1.0,
    1.2), rotation_search (0, 30, -30) and their product, on the trained
    ``synth_canonical`` built by ``serve.artifacts.checkpoint_predictor``:
-   for each grid, the fused and looped grid dispatches on every val
-   image in the compact and decode modes (``cli.tta_bench.ab_report``),
-   payloads equal bit for bit, 1 dispatch an image fused and entries + 1
-   looped, ms an image of each; the OKS AP of each grid on the compact
-   lane, and of the multi-scale grid on the fused decode lane with the
+   for each grid, the fused and looped grid dispatches on the first 4
+   val images (:data:`GRID_AB_IMAGES`) in the compact and decode modes
+   (``cli.tta_bench.ab_report``), payloads equal bit for bit, 1 dispatch
+   an image fused and entries + 1 looped, ms an image of each; the OKS AP
+   of each grid on the compact lane over all 12, and of the multi-scale grid on the fused decode lane with the
    decode kernels' counters set to 0 just before and read just after
    (each must have launched); the host full-map protocol
    (``process_image`` with neither flag) on the multi-scale grid, its AP
@@ -205,6 +206,42 @@ released before phase 6, so phase 6's peak memory is its own;
    each decode kernel launched once a request served (one image a
    ``predict_decoded`` call); the SIGKILLed generation's counts die
    with it and are left out.
+11. live video streams and the run telemetry, on phase 7's checkpoint
+   (``synth_canonical`` fp32, boxsize 192, the fused lane): 4
+   ``stream.SyntheticVideo`` streams of 48 drawn 480x640 frames (1, 2, 1
+   and 2 people; each frame's index stamped into its pixel (0, 0)),
+   every stream closed loop from its own thread.  (a) a
+   ``stream.SessionManager`` over one ``DynamicBatcher(max_batch=8,
+   emit_signals=True)`` warmed on the full-frame and the ROI bucket,
+   under an installed ``obs.CompileWatch``: every stream's futures
+   complete in frame order (``stream.read_stamp``), each stream's ledger
+   exact and every frame delivered, synthetic AP against the generator
+   (``cli.stream_bench.SyntheticAP``) >= 0.5, 0 lane shapes run first
+   after warmup, decode launches = the fused-lane batches; it prints
+   identity switches, per-stream FPS and e2e p50/p95.  (b) the same
+   streams with ``FastPathConfig(roi_width=320)``, then without it
+   (the full-frame arm): three-tier conservation exact, ROI answers > 0,
+   0 first runs after warmup, AP >= 0.5 in both arms; the tier mix,
+   escalation reasons and the on/off aggregate-FPS ratio (reported).
+   (c) the same streams over an ``EnginePool`` of 2
+   ``Predictor.device_replica`` batchers, replica 0 stopped (drain 0 s)
+   after 8 delivered frames: no future lost, every stream in frame
+   order with each frame delivered, dropped or failed, failovers >= 1
+   and the frames migrated counted, the pool's ledger exact.  (d) the
+   three decode kernels bit for bit against their plain versions on a
+   captured stream batch of the full-frame bucket and of the ROI bucket.
+   (e) an ``obs.HistoryStore`` sampled every 0.25 s over the phase's
+   registry during (a)-(c): its shards replay bit for bit, ``/history``
+   and ``/query`` answer 200 on an ephemeral port, a
+   ``serve.CapacityModel`` is fitted from it and printed; then
+   ``cli.train.train`` of ``synth_canonical`` for one epoch of 16 steps
+   under ``obs.RunTelemetry(sink, http_port=0, trace_path=...)`` with the
+   health sentinel: ``/healthz`` 200, every event line strict JSON, the
+   trace saved with its step windows, each focal kernel launched 5 times
+   a step and held to its plain version on the first step's calls; then
+   2 steps with ``health_grad_norm_limit`` 1e-9: under ``halt``
+   ``DivergenceError`` at the first window and ``/healthz`` 503, under
+   ``warn`` both windows trained and counted divergent.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -212,7 +249,9 @@ in the fused-lane evaluation of its checkpoint; the other paths' counts
 stand beside them in ``launches_by_path``, phase 8's multi-scale grid as
 ``grid``, phase 9's paths as ``variants``, ``device_gt``, ``distill``
 and ``swa``, phase 10's as ``pool``, ``cascade`` and
-``router_stopped_workers`` (the killed worker generation left out); the focal kernels' device ms a step at ``ae``'s and
+``router_stopped_workers`` (the killed worker generation left out),
+phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
+``telemetry``; the focal kernels' device ms a step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
 ``*_same_inputs_ms``, ``*_bound_ms`` and ``*_bound_by`` beside them; the decode kernels' times at phase 8's grid shape as
@@ -265,6 +304,9 @@ PHASE8_GRIDS = (("single_scale", {}),
 GRID_SHAPE = (768, 1151)
 SERVE_IMAGE = (427, 640)
 DTYPE_VAL_IMAGES = 48     # the dtype matrix's gate: phase 7's val seed
+# the grid A/B's parity and timing: phase 7's first 4 val images (6
+# passes of each grid an image; the APs take all 12)
+GRID_AB_IMAGES = 4
 FOCAL_FWD_PASSES = ("focal_fwd",)
 FOCAL_BWD_PASSES = ("focal_bwd",)
 
@@ -1470,10 +1512,10 @@ def accuracy_tiers(dev, smi, ctx):
     (a) the scale x rotation grid (:data:`PHASE8_GRIDS`) on the trained
     ``synth_canonical``, built by ``serve.artifacts.checkpoint_predictor``
     at fp32: per grid, ``cli.tta_bench.ab_report`` runs the fused and the
-    looped grid on every val image in the compact and the decode mode
-    (payloads equal bit for bit, 1 dispatch an image fused, entries + 1
-    looped; one timed round of the compact mode), and ``validation_oks``
-    scores the grid on
+    looped grid on the first :data:`GRID_AB_IMAGES` val images in the
+    compact and the decode mode (payloads equal bit for bit, 1 dispatch
+    an image fused, entries + 1 looped; one timed round of the compact
+    mode), and ``validation_oks`` scores the grid on every val image on
     the compact lane; the multi-scale grid also on the fused decode lane,
     with the decode kernels' counters set to 0 just before and read just
     after (the ``grid`` launches of the kernels line), its first image's
@@ -1538,12 +1580,16 @@ def accuracy_tiers(dev, smi, ctx):
                                     pred.predict_fast)
     pred.predict = count_calls(fallbacks, "predict", pred.predict)
     aps, lane_ms = {}, {}
+    ab_images = images[:GRID_AB_IMAGES]
+    t_ab = 0.0
     for name, prm in grids.items():
         n_entries = len(prm.scale_search) * len(prm.rotation_search)
         # one timed round of the compact mode; the decode mode's ms are
         # its parity pass's (the compact rounds warmed the forwards)
         for mode, rounds in (("compact", 1), ("decode", 0)):
-            rep = ab_report(pred, images, prm, rounds=rounds, mode=mode)
+            t0 = time.perf_counter()
+            rep = ab_report(pred, ab_images, prm, rounds=rounds, mode=mode)
+            t_ab += time.perf_counter() - t0
             bad = [i for i, ok in enumerate(rep["payload_equal_per_image"])
                    if not ok]
             check(not bad, f"grid {name} ({mode}): the fused and looped "
@@ -1558,14 +1604,15 @@ def accuracy_tiers(dev, smi, ctx):
                                    compact=True, dump_name=f"grid_{name}",
                                    **kw)["AP"]
         print(f"{tag} grid {name} ({n_entries} entries): fused = looped "
-              f"bit for bit on {len(images)} val images in the compact and "
-              f"decode modes, 1 and {n_entries + 1} dispatches an image; "
+              f"bit for bit on {len(ab_images)} of the {len(images)} val "
+              f"images in the compact and decode modes, 1 and "
+              f"{n_entries + 1} dispatches an image; "
               f"ms an image (host clock, row fetched) fused/looped: "
               f"compact {lane_ms[name, 'compact'][0]:.2f}/"
               f"{lane_ms[name, 'compact'][1]:.2f}, decode (its parity pass) "
               f"{lane_ms[name, 'decode'][0]:.2f}/"
               f"{lane_ms[name, 'decode'][1]:.2f}; OKS AP on the compact "
-              f"lane {aps[name]:.4f} [{smi}]")
+              f"lane {aps[name]:.4f} (all {len(images)}) [{smi}]")
     taken = dict(fallbacks)
 
     lane_calls = []
@@ -1747,7 +1794,8 @@ def accuracy_tiers(dev, smi, ctx):
           f"{dtype_ap_more['bf16']:.4f}/{dtype_ap_more['fp32']:.4f}, "
           f"int8 bytes "
           f"{dtype_bytes['int8'] / dtype_bytes['fp32']:.3f} x fp32; phase "
-          f"took {time.perf_counter() - t_phase:.1f} s")
+          f"took {time.perf_counter() - t_phase:.1f} s (the grid A/B "
+          f"{t_ab:.1f} s)")
     return grid_launches, {k: v for k, v in timed.items()}
 
 
@@ -2537,20 +2585,35 @@ def supervised_segments(dev, smi, ctx, work):
     torch.cuda.empty_cache()
 
 
+def laps(t0: float, marks) -> str:
+    """The seconds between successive ``(label, perf_counter)`` marks,
+    from ``t0``: ``"a 1.2, b 3.4"``."""
+    out = []
+    for label, t in marks:
+        out.append(f"{label} {t - t0:.1f}")
+        t0 = t
+    return ", ".join(out)
+
+
 def rest_of_training(dev, smi, sync, ctx, work):
     """Phase 9: (a)-(e).  Returns the launches by path and the focal
     kernels' device ms at ``ae``'s and ``final_384``'s shapes."""
     t0 = time.perf_counter()
-    variants, focal_ms = variants_at_full_width(dev, smi, sync["records"])
+    records = sync["records"]
+    variants, focal_ms = variants_at_full_width(dev, smi, records)
+    marks = [("a", time.perf_counter())]
     launches = {"variants": variants,
-                "device_gt": device_gt_through_ring(
-                    dev, smi, sync["records"], sync, work),
-                "distill": distill_at_full_width(dev, smi, sync["records"],
-                                                 work),
-                "swa": swa_on_phase7(dev, smi, ctx, work)}
+                "device_gt": device_gt_through_ring(dev, smi, records, sync,
+                                                    work)}
+    marks.append(("b", time.perf_counter()))
+    launches["distill"] = distill_at_full_width(dev, smi, records, work)
+    marks.append(("c", time.perf_counter()))
+    launches["swa"] = swa_on_phase7(dev, smi, ctx, work)
+    marks.append(("d", time.perf_counter()))
     supervised_segments(dev, smi, ctx, work)
-    print(f"[9 rest of training] phase took {time.perf_counter() - t0:.1f}"
-          " s")
+    marks.append(("e", time.perf_counter()))
+    print(f"[9 rest of training] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
     return {"launches": launches, "focal_device_ms": focal_ms}
 
 
@@ -3068,11 +3131,562 @@ def serving_beyond_one_batcher(dev, smi, ctx, stub_maps, planted, work):
     val = val_set(ctx)
     pool_launches, reps = replica_pool(dev, smi, ctx, stub_maps, planted,
                                        val)
+    marks = [("a", time.perf_counter())]
     launches = {"pool": pool_launches,
                 "cascade": cascade_tiers(dev, smi, ctx, val)}
+    marks.append(("b", time.perf_counter()))
     launches["router_stopped_workers"] = process_router(dev, smi, ctx, val,
                                                         reps, work)
-    print(f"[10 serving] phase took {time.perf_counter() - t0:.1f} s")
+    marks.append(("c", time.perf_counter()))
+    print(f"[10 serving] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# phase 11: live video streams, and the run telemetry                    #
+# ---------------------------------------------------------------------- #
+# 4 streams of 48 drawn 480x640 frames, 1-2 people each; the fast path's
+# ROI crop keeps the frame's height and half its width
+STREAMS = dict(frames=48, size=(480, 640), people=(1, 2, 1, 2), seed=1100)
+ROI_WIDTH = 320
+FIT_STEPS = 16
+
+
+def stamped(frame, t: int):
+    """``frame`` with ``t`` stamped into its pixel (0, 0) as
+    ``SyntheticVideo.stamped_frame`` stamps every pixel, so
+    ``stream.read_stamp`` reads the frame's index back."""
+    out = frame.copy()
+    out[0, 0] = (t & 0xFF, 0, 0xA0)
+    return out
+
+
+def stream_videos():
+    """The phase's videos and their stamped frames, rendered up front."""
+    from improved_body_parts_torch.stream import SyntheticVideo
+
+    vids = [SyntheticVideo(seed=STREAMS["seed"] + i, num_people=p,
+                           size=STREAMS["size"],
+                           num_frames=STREAMS["frames"])
+            for i, p in enumerate(STREAMS["people"])]
+    return vids, [[stamped(v.frame(t), t) for t in range(v.num_frames)]
+                  for v in vids]
+
+
+def drive_streams(manager, frames, fastpath=None, on_done=None):
+    """Each stream closed loop from its own client thread through its own
+    session of ``manager``: every frame submitted as the session admits
+    it.  Returns, per stream, each frame's tracked people (or the
+    exception its future carried), the frame stamps in the order the
+    futures completed, and the closed session's snapshot; and the wall
+    seconds."""
+    import threading
+
+    from improved_body_parts_torch.stream import read_stamp
+
+    sessions = [manager.open(f"cam{i}", fastpath=fastpath)
+                for i in range(len(frames))]
+    outs = [dict(results=[None] * len(f), order=[]) for f in frames]
+    lock, errors = threading.Lock(), []
+
+    def client(i):
+        try:
+            futs = []
+            for img in frames[i]:
+                fut = sessions[i].submit_frame(img)
+
+                def done(_, i=i, t=read_stamp(img)[0]):
+                    with lock:
+                        outs[i]["order"].append(t)
+                    if on_done is not None:
+                        on_done()
+
+                fut.add_done_callback(done)
+                futs.append(fut)
+            for t, fut in enumerate(futs):
+                try:
+                    outs[i]["results"][t] = fut.result(timeout=300)
+                except Exception as e:  # noqa: BLE001 — counted below
+                    outs[i]["results"][t] = e
+        except Exception as e:  # noqa: BLE001 — surfaced by the check
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(frames))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"streams: a client failed: {errors[:1]}")
+    for i, s in enumerate(sessions):
+        check(s.close(timeout_s=120), f"stream {i}: close did not drain")
+        outs[i]["snapshot"] = s.snapshot()
+    return outs, wall
+
+
+def stream_quality(vids, outs):
+    """Synthetic AP of every delivered frame against the generator's
+    ground truth (``cli.stream_bench.SyntheticAP``), and each stream's
+    identity switches."""
+    from improved_body_parts_torch.cli.stream_bench import SyntheticAP
+    from improved_body_parts_torch.stream import IdentitySwitchCounter
+
+    ap, switches = SyntheticAP(), []
+    for vid, out in zip(vids, outs):
+        counter = IdentitySwitchCounter()
+        for t, tracked in enumerate(out["results"]):
+            if isinstance(tracked, list):
+                ap.update(vid.gt(t), tracked)
+                counter.update(vid.gt(t), tracked)
+        switches.append(counter.switches)
+    return ap.value(), switches
+
+
+def check_streams(outs, label: str, lossless: bool = True) -> dict:
+    """Each stream's ledger: delivery in frame order, submitted =
+    delivered + dropped + failed + in flight (0 after close), and (where
+    ``lossless``) every frame delivered.  Returns the arm's summary."""
+    n = STREAMS["frames"]
+    for i, out in enumerate(outs):
+        snap = out["snapshot"]
+        check(out["order"] == list(range(n)), f"{label}: stream {i} "
+              f"completed frames in the order {out['order']}")
+        check(all(r is not None for r in out["results"]),
+              f"{label}: stream {i} lost a future")
+        check(snap["frames_submitted"] == snap["frames_delivered"]
+              + snap["frames_dropped"] + snap["frames_failed"]
+              + snap["in_flight"] and snap["in_flight"] == 0,
+              f"{label}: stream {i} ledger {snap}")
+        if lossless:
+            check(snap["frames_delivered"] == n, f"{label}: stream {i} "
+                  f"delivered {snap['frames_delivered']} of {n}")
+    snaps = [o["snapshot"] for o in outs]
+    return dict(
+        fps=[s["fps"] for s in snaps],
+        p50=[round(s["e2e_latency_ms"]["p50"], 2) for s in snaps],
+        p95=[round(s["e2e_latency_ms"]["p95"], 2) for s in snaps],
+        delivered=sum(s["frames_delivered"] for s in snaps),
+        dropped=sum(s["frames_dropped"] for s in snaps),
+        failed=sum(s["frames_failed"] for s in snaps))
+
+
+def capture_by_shape(pred, store: dict):
+    """``pred.decode_maps`` wrapped to keep a clone of the arguments of
+    its first call at each map (H, W): one batch of each lane bucket the
+    streams ran."""
+    import torch
+
+    fn = pred.decode_maps
+
+    def wrapper(*args):
+        key = tuple(args[0].shape[1:3])
+        if key not in store:
+            store[key] = tuple(a.detach().clone()
+                               if isinstance(a, torch.Tensor) else a
+                               for a in args)
+        return fn(*args)
+
+    pred.decode_maps = wrapper
+
+
+def history_feed(store) -> dict:
+    """What a control loop reads of a history store, as one comparable
+    document (every series' latest value and raw ring, the signals)."""
+    return {"keys": store.keys(), "signals": store.signals(),
+            "series": {k: (store.latest(k), store.query(k)["points"],
+                           store.rate(k, 5.0))
+                       for k in store.keys()}}
+
+
+def http_json(url):
+    """(status, JSON body) of a GET, the error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def streams_over_one_batcher(dev, smi, ctx, pred, vids, frames, reg,
+                             watch, captured):
+    """Phase 11 (a) and (b).  Returns the decode launches by path."""
+    import dataclasses
+
+    import torch
+
+    from improved_body_parts_torch.cli.stream_bench import fastpath_block
+    from improved_body_parts_torch.serve import DynamicBatcher
+    from improved_body_parts_torch.stream import (
+        FastPathConfig,
+        SessionManager,
+    )
+
+    h, w = STREAMS["size"]
+    chunks = [0]
+    count_decode_chunks(pred, chunks, 0)
+    launches = {}
+    with DynamicBatcher(pred, max_batch=8, max_wait_ms=25, max_queue=64,
+                        emit_signals=True, registry=reg) as server:
+        t0 = time.perf_counter()
+        info = server.warmup([(h, w), (h, ROI_WIDTH)])
+        warm_s = time.perf_counter() - t0
+        watch.mark_warm("stream buckets warmed")
+        # after the warmup, whose batches are blank images
+        capture_by_shape(pred, captured)
+        first0 = watch.recompiles.value
+        manager = SessionManager(server, registry=reg, max_in_flight=4)
+        chunks[0] = 0
+        reset_launches()
+        outs, wall = drive_streams(manager, frames)
+        torch.cuda.synchronize()
+        launches["stream"] = read_launches()
+        n_chunks = chunks[0]
+        arm = check_streams(outs, "11a streams")
+        ap, switches = stream_quality(vids, outs)
+        first_a = watch.recompiles.value - first0
+        check(first_a == 0, f"11a streams: {first_a} lane shapes ran first "
+              "after warmup")
+        for k, v in launches["stream"].items():
+            check(v == n_chunks and v > 0, f"11a streams: {k} launched {v} "
+                  f"times for {n_chunks} fused-lane batches")
+        check(ap >= 0.5, f"11a streams: synthetic AP {ap:.4f} < 0.5")
+        print(f"[11a streams] {len(frames)} streams x {STREAMS['frames']} "
+              f"drawn {h}x{w} frames ({STREAMS['people']} people) through "
+              f"a SessionManager over one DynamicBatcher (max_batch 8, "
+              f"emit_signals) of synth_canonical fp32 at boxsize "
+              f"{ctx['net']}; warmup {info['bucket_shapes']} x "
+              f"{info['batch_sizes']} in {warm_s:.2f} s, 0 lane shapes "
+              f"first after it; every stream in frame order, ledgers "
+              f"exact, {arm['delivered']} delivered: synthetic AP "
+              f"{ap:.4f}, identity switches {switches}, per-stream FPS "
+              f"{arm['fps']}, e2e p50 {arm['p50']} ms, p95 {arm['p95']} "
+              f"ms, aggregate {arm['delivered'] / wall:.2f} fps; decode "
+              f"launches {launches['stream']} = the {n_chunks} fused-lane "
+              f"batches [{smi}]")
+
+        cfg = FastPathConfig(roi_width=ROI_WIDTH)
+        fp_manager = SessionManager(server, max_in_flight=4)
+        chunks[0] = 0
+        reset_launches()
+        first0 = watch.recompiles.value
+        on, wall_on = drive_streams(fp_manager, frames, fastpath=cfg)
+        torch.cuda.synchronize()
+        launches["stream_fastpath"] = read_launches()
+        n_chunks = chunks[0]
+        off, wall_off = drive_streams(fp_manager, frames)
+        first_b = watch.recompiles.value - first0
+    arm_on = check_streams(on, "11b fast path")
+    arm_off = check_streams(off, "11b full-frame arm")
+    block = fastpath_block([o["snapshot"] for o in on])
+    cons = block["conservation"]
+    ap_on, sw_on = stream_quality(vids, on)
+    ap_off, sw_off = stream_quality(vids, off)
+    check(cons["exact"] and cons["submitted"] == len(frames)
+          * STREAMS["frames"], f"11b fast path: conservation {cons}")
+    check(cons["answered_roi"] > 0, f"11b fast path: no frame took the "
+          f"ROI tier ({cons})")
+    check(first_b == 0, f"11b fast path: {first_b} lane shapes ran first "
+          "after warmup")
+    check(min(ap_on, ap_off) >= 0.5, f"11b fast path: synthetic AP on "
+          f"{ap_on:.4f}, off {ap_off:.4f}")
+    for k, v in launches["stream_fastpath"].items():
+        check(v == n_chunks and v > 0, f"11b fast path: {k} launched {v} "
+              f"times for {n_chunks} fused-lane batches")
+    fps_on = arm_on["delivered"] / wall_on
+    fps_off = arm_off["delivered"] / wall_off
+    print(f"[11b fast path] FastPathConfig({dataclasses.asdict(cfg)}): "
+          f"tier mix tracker {cons['answered_tracker']}, roi "
+          f"{cons['answered_roi']}, full {cons['escalated_full']} of "
+          f"{cons['submitted']} (conservation exact), escalations "
+          f"{ {k: v for k, v in block['escalations'].items() if v} }; "
+          f"synthetic AP on {ap_on:.4f} / off {ap_off:.4f}, identity "
+          f"switches on {sw_on} / off {sw_off}; aggregate {fps_on:.2f} "
+          f"fps on, {fps_off:.2f} off (ratio {fps_on / fps_off:.3f}, "
+          f"reported, not gated); per-stream FPS on {arm_on['fps']}, e2e "
+          f"p50 {arm_on['p50']} ms; 0 lane shapes first after warmup; "
+          f"decode launches {launches['stream_fastpath']} = the "
+          f"{n_chunks} fused-lane batches of the on arm [{smi}]")
+    del pred._run_chunk, pred.decode_maps
+    return launches
+
+
+def streams_over_a_pool(dev, smi, pred, frames, watch):
+    """Phase 11 (c).  Returns the decode launches of the path."""
+    import threading
+
+    import torch
+
+    from improved_body_parts_torch.serve import DynamicBatcher, EnginePool
+    from improved_body_parts_torch.stream import SessionManager
+
+    h, w = STREAMS["size"]
+    reps = [pred.device_replica("cuda") for _ in range(2)]
+    chunks = [0, 0]
+    for i, r in enumerate(reps):
+        count_decode_chunks(r, chunks, i)
+    engines = [DynamicBatcher(r, max_batch=8, max_wait_ms=25,
+                              max_queue=64, emit_signals=True)
+               for r in reps]
+    delivered, stopped = [0], threading.Event()
+    pool = EnginePool(engines, wedge_timeout_s=WEDGE_S,
+                      drain_timeout_s=10.0)
+    with pool:
+        pool.warmup([(h, w)])
+        first0 = watch.recompiles.value
+        chunks[:] = [0, 0]
+        reset_launches()
+
+        def on_done():
+            delivered[0] += 1
+            if delivered[0] == 8:
+                stopped.set()
+
+        state = {}
+
+        def stop_replica_0():
+            stopped.wait(300)
+            state["in_flight"] = engines[0].metrics.depth
+            engines[0].stop(drain_timeout_s=0.0)
+
+        stopper = threading.Thread(target=stop_replica_0)
+        stopper.start()
+        outs, wall = drive_streams(SessionManager(pool, max_in_flight=4),
+                                   frames, on_done=on_done)
+        stopper.join(timeout=300)
+        counters = pool.counters()
+        m = pool.metrics
+        states = [s["state"] for s in pool.replica_states()]
+        first_c = watch.recompiles.value - first0
+    join_serve_threads()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    arm = check_streams(outs, "11c pool", lossless=False)
+    check(m.submitted == m.completed + m.failed + m.depth and m.depth == 0,
+          f"11c pool: submitted {m.submitted} != completed {m.completed} "
+          f"+ failed {m.failed} + depth {m.depth}")
+    check(counters["failovers"] >= 1, f"11c pool: no failover after "
+          f"replica 0 stopped ({counters})")
+    n_chunks = sum(chunks)
+    for k, v in launches.items():
+        check(v == n_chunks and v > 0, f"11c pool: {k} launched {v} times "
+              f"for {n_chunks} fused-lane batches")
+    print(f"[11c pool] the same streams through a SessionManager over an "
+          f"EnginePool of 2 device_replica batchers, replica 0 stopped "
+          f"(drain 0 s) after 8 delivered frames with "
+          f"{state.get('in_flight')} requests on it: 0 futures lost, "
+          f"every stream in frame order, {arm['delivered']} delivered, "
+          f"{arm['dropped']} dropped, {arm['failed']} failed; failovers "
+          f"{counters['failovers']}, frames migrated (resubmitted) "
+          f"{counters['resubmitted']}, fenced {counters['fenced']}, "
+          f"replica states {states}; pool submitted {m.submitted} = "
+          f"completed {m.completed} + failed {m.failed} + depth "
+          f"{m.depth}; per-stream FPS {arm['fps']}, aggregate "
+          f"{arm['delivered'] / wall:.2f} fps; {first_c:.0f} lane shapes "
+          f"first after the pool's warmup; decode launches {launches} = "
+          f"the {n_chunks} fused-lane batches ({chunks}) [{smi}]")
+    return launches
+
+
+def history_of_the_streams(smi, store, reg, path):
+    """Phase 11 (e), first half: the store sampled during (a)-(c)."""
+    from improved_body_parts_torch.obs import HistoryStore, MetricsServer
+    from improved_body_parts_torch.serve import CapacityModel
+
+    live = history_feed(store)
+    replayed = HistoryStore.replay(path)
+    check(history_feed(replayed) == live, "11e history: the shards do not "
+          "replay bit for bit")
+    doc = store.doc()
+    check(doc["samples"] >= 8 and doc["series"] > 0,
+          f"11e history: {doc['samples']} samples of {doc['series']} "
+          "series")
+    with MetricsServer(reg, port=0, history=store) as srv:
+        code_h, body = http_json(srv.url + "/history")
+        code_q, q = http_json(srv.url + "/query?series="
+                              "serve_completed_total&step=1")
+    check(code_h == 200 and body["samples"] == doc["samples"],
+          f"11e history: /history answered {code_h}")
+    check(code_q == 200 and q["points"], f"11e history: /query answered "
+          f"{code_q}")
+    model = CapacityModel.fit(store, window_s=1.0, prefix="serve",
+                              max_batch=8)
+    need = model.replicas_needed(100.0)
+    print(f"[11e history] HistoryStore at a 0.25 s cadence over the "
+          f"phase's registry during (a)-(c): {doc['samples']} samples of "
+          f"{doc['series']} series, {doc['gaps']['count']} gaps, "
+          f"{doc['persist']['shards']} shard(s) of "
+          f"{doc['persist']['records']} records replayed bit for bit; "
+          f"/history and /query answered 200 on an ephemeral port; "
+          f"CapacityModel.fit(prefix serve, 1 s windows): "
+          f"{len(model.points)} windows, qps "
+          f"{[round(p['qps'], 2) for p in model.points]}, mean ms "
+          f"{[round(p['mean_ms'], 2) for p in model.points]}, knee "
+          f"{model.knee_qps} qps at objective {model.objective_ms} ms; "
+          f"replicas for 100 qps: {need['replicas']} [{smi}]")
+
+
+def fit_under_telemetry(dev, smi, ctx, work):
+    """Phase 11 (e), second half: ``fit`` of ``synth_canonical`` under
+    ``RunTelemetry``, then a divergent window under halt and under warn.
+    Returns the focal launches of the fit."""
+    import dataclasses
+
+    import torch
+
+    from improved_body_parts_torch.cli.train import train
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.data import MemoryDataset
+    from improved_body_parts_torch.obs import (
+        DivergenceError,
+        Registry,
+        RunTelemetry,
+    )
+    from improved_body_parts_torch.ops import losses
+
+    base = get_config(SYNTH_AP["config"])
+    bs = base.train.batch_size_per_device
+    records = ctx["records"][:FIT_STEPS * bs]
+    sink = os.path.join(work, "p11_events.jsonl")
+    trace = os.path.join(work, "p11_trace.json")
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, checkpoint_dir=os.path.join(work, "p11_fit"),
+        print_freq=4, keep_last_n=1))
+    calls, fused = [], losses.focal_l2_fused
+    losses.focal_l2_fused = first_calls(fused, 5, calls)
+    tele = RunTelemetry(sink, http_port=0, trace_path=trace,
+                        registry=Registry(), device=dev,
+                        run_meta={"tool": "chip_smoke", "phase": 11})
+    reset_focal()
+    t0 = time.perf_counter()
+    try:
+        _, run = train(cfg, MemoryDataset(records, cfg, seed=0), 1,
+                       device=dev, log_fn=lambda s: None, telemetry=tele)
+        counts = focal_counts()
+        code, health = http_json(tele.server.url + "/healthz")
+    finally:
+        losses.focal_l2_fused = fused
+        tele.close()
+    wall = time.perf_counter() - t0
+    with open(sink) as f:
+        events = [json.loads(line, parse_constant=fail) for line in f]
+    names = [e["event"] for e in events]
+    with open(trace) as f:
+        spans = json.load(f)["traceEvents"]
+    want = {k: 5 * FIT_STEPS for k in FOCAL_KERNELS}
+    check(run["steps"] == FIT_STEPS and counts == want,
+          f"11e fit: {run['steps']} steps, focal launches {counts}, "
+          f"expected {want}")
+    check(code == 200 and health["status"] == "ok",
+          f"11e fit: /healthz {code} {health.get('status')}")
+    check(names.count("train_step") == FIT_STEPS // 4
+          and names.count("health") == FIT_STEPS // 4
+          and "epoch" in names and "trace_export" in names,
+          f"11e fit: events {sorted(set(names))}")
+    check(any(s.get("name") == "step_window" for s in spans),
+          "11e fit: no step_window span in the saved trace")
+    check(len(calls) == 5, f"11e fit: captured {len(calls)} focal calls")
+    hold_focal(calls, torch.tensor(cfg.train.nstack_weight, device=dev)
+               * 0.25, "the telemetry fit's first step", tag="[11e fit]")
+    gnorms = [e["grad_norm"] for e in events if e["event"] == "health"]
+    print(f"[11e fit] cli.train.train of {SYNTH_AP['config']}, one epoch "
+          f"of {run['steps']} steps under RunTelemetry(sink, http_port=0, "
+          f"trace_path) with the sentinel: /healthz 200, "
+          f"{len(events)} events, every line strict JSON "
+          f"({sorted(set(names))}), {len(spans)} trace events saved; "
+          f"grad norms read at the windows {gnorms}; median step "
+          f"{run['step_ms_median']:.2f} ms (CUDA events), "
+          f"{run['train_imgs_per_s']:.2f} imgs/s; focal launches {counts} "
+          f"(5 a step); {wall:.1f} s with the save [{smi}]")
+
+    for policy in ("halt", "warn"):
+        cfg = base.replace(train=dataclasses.replace(
+            base.train, print_freq=1, keep_last_n=1, on_divergence=policy,
+            health_grad_norm_limit=1e-9,
+            checkpoint_dir=os.path.join(work, f"p11_{policy}")))
+        tele = RunTelemetry(None, http_port=0, registry=Registry(),
+                            device=dev, on_divergence=policy,
+                            grad_norm_limit=1e-9)
+        raised = None
+        try:
+            try:
+                train(cfg, MemoryDataset(records[:2 * bs], cfg, seed=0), 1,
+                      device=dev, log_fn=lambda s: None, telemetry=tele)
+            except DivergenceError as e:
+                raised = str(e)
+            code, body = http_json(tele.server.url + "/healthz")
+        finally:
+            tele.close()
+        if policy == "halt":
+            check(raised is not None and "grad_norm_over_limit" in raised
+                  and code == 503 and body["checks"] == 1,
+                  f"11e halt: raised {raised!r}, /healthz {code} {body}")
+        else:
+            check(raised is None and code == 503 and body["checks"] == 2
+                  and body["divergences"] == 2,
+                  f"11e warn: raised {raised!r}, /healthz {code} {body}")
+        print(f"[11e {policy}] health_grad_norm_limit 1e-9, one window a "
+              f"step: {'DivergenceError at the first window' if raised else 'trained on'}"
+              f", /healthz {code}, {body['checks']} windows checked, "
+              f"{body['divergences']} divergent, last "
+              f"{body['last']['reasons']}")
+    return counts
+
+
+def live_streams(dev, smi, ctx, work):
+    """Phase 11: (a)-(e).  Returns the launches by path."""
+    import torch
+
+    from improved_body_parts_torch.obs import (
+        CompileWatch,
+        HistoryStore,
+        Registry,
+    )
+    from improved_body_parts_torch.serve import checkpoint_predictor
+
+    t0 = time.perf_counter()
+    vids, frames = stream_videos()
+    pred = checkpoint_predictor(SYNTH_AP["config"], ctx["checkpoint"],
+                                params_dtype="fp32", boxsize=ctx["net"],
+                                device=dev)
+    reg = Registry()
+    watch = CompileWatch(reg).install()
+    hist_path = os.path.join(work, "p11_history.jsonl")
+    store = HistoryStore(reg, cadence_s=0.25, persist_path=hist_path,
+                         run_id="chip_smoke-11").register_into(reg)
+    captured = {}
+    store.start()
+    try:
+        launches = streams_over_one_batcher(dev, smi, ctx, pred, vids,
+                                            frames, reg, watch, captured)
+        marks = [("a-b", time.perf_counter())]
+        launches["stream_pool"] = streams_over_a_pool(dev, smi, pred,
+                                                      frames, watch)
+        marks.append(("c", time.perf_counter()))
+    finally:
+        store.close()
+        watch.uninstall()
+    # (d) the decode kernels at the full-frame and the ROI bucket's maps
+    check(len(captured) == 2, f"11d kernels: captured the lane's maps at "
+          f"{sorted(captured)}, expected the full-frame and ROI buckets")
+    # the wider map is the full frame's bucket, the narrower the ROI's
+    for name, shape in zip(("full-frame", "ROI"),
+                           sorted(captured, key=lambda s: -s[1])):
+        hold_lane_call(pred.skeleton, captured[shape], f"a stream batch "
+                       f"of the {name} bucket", smi, tag="[11d kernels]")
+    history_of_the_streams(smi, store, reg, hist_path)
+    marks.append(("d + history", time.perf_counter()))
+    del pred, captured
+    torch.cuda.empty_cache()
+    launches["telemetry"] = fit_under_telemetry(dev, smi, ctx, work)
+    marks.append(("fit", time.perf_counter()))
+    print(f"[11 streams] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
     return launches
 
 
@@ -3355,6 +3969,8 @@ def main() -> int:
     # ---------------------------------------- 6. training at full width
     train_launches, sync_train = train_full_width(cfg, dev, smi)
     launches.update(train_launches)
+    print(f"[chip_smoke] phases 1-6 took "
+          f"{time.perf_counter() - T_START:.1f} s")
 
     # ------------------------------ 7. learn -> AP, 8. accuracy tiers
     work = tempfile.mkdtemp(prefix="chip_smoke_synth_ap_")
@@ -3366,6 +3982,8 @@ def main() -> int:
         # -------------------------- 10. serving beyond one batcher
         serving = serving_beyond_one_batcher(dev, smi, trained, stub_maps,
                                              planted, work)
+        # ------------------ 11. live video streams, run telemetry
+        streams = live_streams(dev, smi, trained, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3393,8 +4011,8 @@ def main() -> int:
         by_path[k]["learn_to_ap"] = n
     for k, n in grid_launches.items():
         by_path[k]["grid"] = n
-    for path, counts in list(rest["launches"].items()) + list(
-            serving.items()):
+    for path, counts in (list(rest["launches"].items())
+                         + list(serving.items()) + list(streams.items())):
         for k, n in counts.items():
             by_path[k][path] = n
     launches = ap_launches

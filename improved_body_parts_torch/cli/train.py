@@ -14,7 +14,17 @@ Flags, with the JAX CLI's meaning:
   ``parallel.device_prefetch``; the config's ``input_pipeline`` by
   default), ``--wire {uint8,f32}``, ``--device-gt MAX_PEOPLE`` (labels
   made on the device from padded joints);
-- ``--no-focal`` (plain L2), ``--on-divergence skip_step``;
+- ``--no-focal`` (plain L2), ``--on-divergence {warn,halt,skip_step}``
+  (the run-health sentinel's policy: warn records a divergent window,
+  halt stops the run with ``obs.DivergenceError``, skip_step drops the
+  update inside the step);
+- telemetry: ``--telemetry-sink`` (the JSONL event stream; ``auto`` =
+  ``<checkpoint_dir>/events.jsonl``), ``--telemetry-port`` (the live
+  ``/metrics`` + ``/snapshot`` + ``/healthz`` endpoint; 0 = ephemeral)
+  and ``--telemetry-trace`` (the span trace; ``auto`` =
+  ``<checkpoint_dir>/trace.json``), through ``obs.RunTelemetry``; the
+  bundle runs whenever one of them is set or the policy is not warn,
+  and the step then returns its gradient norm for the sentinel;
 - the SWA stage, ``--swa --swa-freq --swa-lr-max --swa-lr-min``
   (train_distributed_SWA.py): the cyclic schedule anchored where SWA
   began, BN frozen, the average updated every ``--swa-freq`` epochs and
@@ -35,10 +45,8 @@ time, train imgs/s, each save's blocked and writer ms, and a SHA-256 of
 the final model ``state_dict``.
 
 Not ported (ROADMAP.md, Queue 1), and refused with an error: the retired
-``--input-pipeline pool``, ``--on-divergence warn|halt`` and
-``--telemetry-*`` (the telemetry bundle), ``--reshard``,
-``--partition``, ``--partition-rules``, ``--mesh-model`` and the
-multi-host flags.
+``--input-pipeline pool``, ``--reshard``, ``--partition``,
+``--partition-rules``, ``--mesh-model`` and the multi-host flags.
 """
 from __future__ import annotations
 
@@ -54,10 +62,6 @@ import torch
 
 # flags of the JAX CLI that the port refuses: flag -> what it needs
 UNPORTED = {
-    "--telemetry-sink": "the telemetry bundle (ROADMAP.md, queue 1 item 12)",
-    "--telemetry-port": "the telemetry bundle (ROADMAP.md, queue 1 item 12)",
-    "--telemetry-trace": "the telemetry bundle (ROADMAP.md, queue 1 item "
-                         "12)",
     "--reshard": "multi-card training (ROADMAP.md, queue 1 item 9)",
     "--partition": "multi-card training (ROADMAP.md, queue 1 item 9)",
     "--partition-rules": "multi-card training (ROADMAP.md, queue 1 item 9)",
@@ -141,9 +145,25 @@ def _parser():
                     help="plain L2 loss (the reference's L2 stage)")
     ap.add_argument("--on-divergence", default=None,
                     choices=("warn", "halt", "skip_step"),
-                    help="'skip_step' drops an update whose gradient norm "
-                         "is not finite, inside the step; 'warn' and "
-                         "'halt' need the telemetry sentinel (not ported)")
+                    help="run-health sentinel policy on a non-finite "
+                         "loss/grad-norm window (default: the config's "
+                         "on_divergence): warn = record and continue, "
+                         "halt = stop the run, skip_step = drop the "
+                         "update inside the step")
+    ap.add_argument("--telemetry-sink", default=None,
+                    help="JSONL run-event stream (default: the config's "
+                         "telemetry_sink; 'auto' = <checkpoint_dir>/"
+                         "events.jsonl, '' disables)")
+    ap.add_argument("--telemetry-port", type=int, default=None,
+                    help="live /metrics (Prometheus) + /snapshot (JSON) "
+                         "+ /healthz endpoint port (default: the "
+                         "config's telemetry_port; 0 = ephemeral, "
+                         "-1 disables)")
+    ap.add_argument("--telemetry-trace", default=None,
+                    help="span-trace export path (default: the config's "
+                         "telemetry_trace; 'auto' = <checkpoint_dir>/"
+                         "trace.json, '' disables; open it at "
+                         "ui.perfetto.dev)")
     ap.add_argument("--swa", action="store_true",
                     help="SWA fine-tuning: cyclic LR, frozen BN, averaged "
                          "weights saved (train_distributed_SWA.py)")
@@ -214,10 +234,6 @@ def resolve_args(args):
     if args.input_pipeline == "pool":
         _refuse("--input-pipeline pool (the retired spawn pool) is not "
                 "ported; use shm or sync (ROADMAP.md, queue 1)")
-    if args.on_divergence in ("warn", "halt"):
-        _refuse(f"--on-divergence {args.on_divergence} needs the "
-                "telemetry health sentinel, not ported (ROADMAP.md, queue "
-                "1 item 12); skip_step is")
     if args.lr and args.swa:
         _refuse("--lr does not apply to the SWA stage; use "
                 "--swa-lr-max/--swa-lr-min instead")
@@ -286,15 +302,48 @@ def load_teacher(teacher_cfg, path: str, device):
     return teacher.eval()
 
 
+def make_telemetry(args, cfg, device, supervisor=None):
+    """The run's ``obs.RunTelemetry`` from the telemetry flags (each
+    defaults to the config's knob), or None when no sink, trace or
+    endpoint is asked for and the divergence policy is ``warn``: a
+    non-warn policy needs the sentinel running even then, or ``--on-
+    divergence halt`` would be accepted and not enforced.  Returns
+    ``(telemetry, sink_path, trace_path)``."""
+    from ..obs import RunTelemetry, resolve_sink_path
+
+    tr = cfg.train
+    sink_cfg = (args.telemetry_sink if args.telemetry_sink is not None
+                else tr.telemetry_sink)
+    sink_path = resolve_sink_path(sink_cfg, tr.checkpoint_dir)
+    trace_cfg = (args.telemetry_trace if args.telemetry_trace is not None
+                 else tr.telemetry_trace)
+    trace_path = resolve_sink_path(trace_cfg, tr.checkpoint_dir,
+                                   default_name="trace.json")
+    port = (args.telemetry_port if args.telemetry_port is not None
+            else tr.telemetry_port)
+    if not (sink_path or trace_path or port >= 0
+            or tr.on_divergence != "warn"):
+        return None, sink_path, trace_path
+    meta = {"tool": "train", "config": args.config, "seed": args.seed}
+    if supervisor is not None:
+        meta.update(run_id=supervisor.run_id, segment=supervisor.segment)
+    telemetry = RunTelemetry(
+        sink_path, http_port=port if port >= 0 else None, run_meta=meta,
+        step_sample=tr.telemetry_sample, trace_path=trace_path,
+        on_divergence=tr.on_divergence,
+        grad_norm_limit=tr.health_grad_norm_limit, device=device)
+    if telemetry.server is not None:
+        print(f"telemetry: {telemetry.server.url}/metrics")
+    return telemetry, sink_path, trace_path
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     cfg, teacher_cfg = resolve_args(args)
 
     from .. import resolve_device
-    from ..data import CocoPoseDataset
     from ..obs.events import strict_dump
     from ..train import RunSupervisor
-    from . import exit_report
 
     device = resolve_device(args.device)
     tr = cfg.train
@@ -308,9 +357,20 @@ def main(argv=None):
             backoff_max_s=args.backoff_max)
         supervisor.open_segment({"argv": argv_list})
         supervisor.install_signal_handlers()
-        supervisor.bind(None)
+    telemetry, sink_path, trace_path = make_telemetry(args, cfg, device,
+                                                      supervisor)
+    if supervisor is not None:
+        # /healthz reports running/draining/backing-off next to the
+        # sentinel state, and the segment_start record enters the stream
+        supervisor.bind(telemetry)
     manifest = {"tool": "train", "config": args.config, "argv": argv_list,
-                "on_divergence": tr.on_divergence}
+                "telemetry_events": sink_path,
+                "telemetry_trace": trace_path,
+                "on_divergence": tr.on_divergence,
+                "telemetry_port": (telemetry.server.port
+                                   if telemetry is not None
+                                   and telemetry.server is not None
+                                   else None)}
     if supervisor is not None:
         supervisor.update_manifest(manifest)
     else:
@@ -318,6 +378,21 @@ def main(argv=None):
         with open(os.path.join(tr.checkpoint_dir, "RUN.json"), "w") as f:
             strict_dump(manifest, f, indent=2)
 
+    try:
+        _run(args, cfg, teacher_cfg, device, supervisor, telemetry)
+    finally:
+        # a crash, and a sentinel halt above all, must still close the
+        # bundle: it saves the span trace and restores the defaults
+        if telemetry is not None:
+            telemetry.close()
+
+
+def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
+    """The CLI's datasets and :func:`train`, then its ``CLI_REPORT``."""
+    from ..data import CocoPoseDataset
+    from . import exit_report
+
+    tr = cfg.train
     teacher = None
     if args.distill_from:
         teacher = load_teacher(teacher_cfg, args.distill_from, device)
@@ -339,7 +414,7 @@ def main(argv=None):
             wire=args.wire or tr.input_wire, device_gt=args.device_gt,
             swa=args.swa, swa_freq=args.swa_freq,
             swa_lr_max=args.swa_lr_max, swa_lr_min=args.swa_lr_min,
-            supervisor=supervisor, teacher=teacher)
+            supervisor=supervisor, teacher=teacher, telemetry=telemetry)
     finally:
         if supervisor is not None:
             supervisor.uninstall_signal_handlers()
@@ -355,7 +430,8 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
           log_fn=print, use_focal: bool = True, workers: int = 0,
           pipeline: str = "sync", wire=None, device_gt: int = 0,
           swa: bool = False, swa_freq: int = 5, swa_lr_max: float = 1e-5,
-          swa_lr_min: float = 1e-6, supervisor=None, teacher=None):
+          swa_lr_min: float = 1e-6, supervisor=None, teacher=None,
+          telemetry=None):
     """The train CLI's run, on any dataset with ``len`` and the batch
     protocol of ``data.batches`` (``CocoPoseDataset`` over HDF5,
     ``MemoryDataset``): the model of ``cfg`` built from ``seed`` on
@@ -371,7 +447,10 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
     of ``fit``; ``supervisor`` (a ``RunSupervisor`` whose segment is
     open) makes ``epochs`` the run's total, resumes automatically and
     retries transient failures; ``teacher`` (a model) trains ``cfg``'s
-    model as its distilled student.
+    model as its distilled student; ``telemetry`` (an open
+    ``obs.RunTelemetry``) reports every window and epoch, exports the
+    rings' internals and has the step return its gradient norm for the
+    health sentinel.
 
     Returns ``(state, report)``: the report holds the steps and images
     trained, the median step ms, train imgs/s over the epochs' batch
@@ -460,13 +539,18 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
             opt.schedule = swa_schedule(anchor)
             opt._lrs = opt._lrs[:0]
 
+    # the sentinel reads the step's gradient norm whenever a bundle runs
+    health = telemetry is not None
+
     def make_step(state):
         model, opt = state.model, state.optimizer
         if teacher is not None:
             return bind_teacher(make_distill_train_step(
-                model, teacher, cfg, opt, use_focal=use_focal), teacher)
+                model, teacher, cfg, opt, use_focal=use_focal,
+                health=health), teacher)
         return make_train_step(model, cfg, opt, use_focal=use_focal,
-                               freeze_bn=swa, device_gt=device_gt > 0)
+                               freeze_bn=swa, device_gt=device_gt > 0,
+                               health=health)
 
     clock = StepClock(make_step(state), device)
     eval_step = make_eval_step(state.model, cfg, use_focal=use_focal)
@@ -484,6 +568,11 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                                  wire=wire, slots=tr.input_ring_slots,
                                  supervise=supervisor is not None)
         rings.append(eval_ring)
+    if telemetry is not None and rings:
+        train_ring.attach_telemetry(telemetry.registry)
+        if eval_ring is not None:
+            eval_ring.attach_telemetry(telemetry.registry,
+                                       prefix="eval_input_ring")
 
     def make_train_batches(epoch):
         if rings:
@@ -510,7 +599,9 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
             return batches(val_dataset, global_batch, 0, pipeline="sync",
                            wire=wire)
 
-    manager = CheckpointManager.from_config(tr.checkpoint_dir, tr)
+    manager = CheckpointManager.from_config(
+        tr.checkpoint_dir, tr,
+        registry=telemetry.registry if telemetry is not None else None)
 
     def milestone(epoch):
         if make_eval_batches is not None:
@@ -528,7 +619,7 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
             for epoch in range(start_epoch, start_epoch + epochs):
                 state, train_loss = train_epoch(
                     state, clock, make_train_batches(epoch), cfg, epoch,
-                    log_fn=log_fn)
+                    log_fn=log_fn, telemetry=telemetry)
                 _log_line(tr.checkpoint_dir,
                           f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
                 if (epoch - start_epoch + 1) % swa_freq == 0:
@@ -546,7 +637,8 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
             fit(state, clock, cfg, make_train_batches, epochs,
                 start_epoch=start_epoch, eval_step=eval_step,
                 make_eval_batches=make_eval_batches, best_loss=best_loss,
-                checkpoint_manager=manager, log_fn=log_fn)
+                checkpoint_manager=manager, log_fn=log_fn,
+                telemetry=telemetry)
         else:
             if resumed_from is not None:
                 milestone(resumed_from)
@@ -562,7 +654,8 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                         start_epoch=start_epoch, eval_step=eval_step,
                         make_eval_batches=make_eval_batches,
                         best_loss=best_loss, checkpoint_manager=manager,
-                        log_fn=log_fn, should_stop=supervisor.should_stop)
+                        log_fn=log_fn, telemetry=telemetry,
+                        should_stop=supervisor.should_stop)
                 except StopRequested as e:
                     supervisor.close_segment("preempted", str(e))
                     log_fn(f"supervisor: clean stop: {e}")

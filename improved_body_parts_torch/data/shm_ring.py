@@ -323,6 +323,10 @@ class ShmRingInput:
         self.max_rebuilds = int(max_rebuilds)
         self._consecutive_rebuilds = 0
         self.rebuilds_total = 0
+        self._tele = None          # obs.Registry, via attach_telemetry
+        self._tele_prefix = "input_ring"
+        self._render_hists = {}    # worker_id -> Histogram
+        self._rebuilds_counter = None
         self.slots = slots if slots > 0 else num_workers + 2
         self._spec = dataset_spec(dataset)
         self.names, self.shapes, self.dtypes = batch_wire_format(
@@ -408,6 +412,60 @@ class ShmRingInput:
         except Exception:  # noqa: BLE001 — already unlinked
             pass
         _quiet_close(shm)
+
+    def attach_telemetry(self, registry,
+                         prefix: str = "input_ring") -> "ShmRingInput":
+        """Export the ring's internals through an ``obs.Registry``:
+
+        - ``<prefix>_slots_total`` / ``<prefix>_free_slots`` — ring
+          capacity and live free-slot count (a persistently-zero free
+          count means the consumer is the bottleneck, a persistently-full
+          one means the workers are);
+        - ``<prefix>_consumer_stall_seconds_total`` / ``_stalls_total``
+          — time the consumer blocked waiting for a completion with no
+          batch ready to yield (the ring-side twin of the train loop's
+          data-wait counter);
+        - ``<prefix>_render_seconds{worker=N}`` — per-worker render-time
+          histograms (a straggler worker shows up as one shifted
+          distribution, not a mystery in the aggregate);
+        - ``<prefix>_batches_total`` — batches yielded;
+        - ``<prefix>_rebuilds_total`` — supervised rebuilds.
+        """
+        self._tele = registry
+        self._tele_prefix = prefix
+        registry.gauge(prefix + "_slots_total", "ring capacity "
+                       "(batch slots)").set(self.slots)
+        # weakref: the registry (often process-global) outlives the
+        # ring, and a closure over self would pin the closed ring for
+        # process lifetime; a dead ring scrapes as 0
+        ref = weakref.ref(self)
+
+        def _free_slots():
+            ring = ref()
+            return len(ring._free) if ring is not None else 0
+
+        registry.gauge(prefix + "_free_slots",
+                       "slots not owned by a worker or in-flight batch",
+                       fn=_free_slots)
+        self._stall_s = registry.counter(
+            prefix + "_consumer_stall_seconds_total",
+            "consumer time blocked on the done queue")
+        self._stalls = registry.counter(prefix + "_consumer_stalls_total")
+        self._batches_total = registry.counter(prefix + "_batches_total")
+        self._rebuilds_counter = registry.counter(
+            prefix + "_rebuilds_total",
+            "supervised ring rebuilds after a worker death")
+        return self
+
+    def _observe_render(self, worker_id: int, render_s: float) -> None:
+        h = self._render_hists.get(worker_id)
+        if h is None:
+            h = self._tele.histogram(
+                self._tele_prefix + "_render_seconds",
+                "per-worker batch render time",
+                labels={"worker": str(worker_id)})
+            self._render_hists[worker_id] = h
+        h.observe(float(render_s))
 
     def close(self) -> None:
         """Stop workers and release the shared-memory block (idempotent)."""
@@ -559,6 +617,8 @@ class ShmRingInput:
             meta[seq] = (epoch, batch_idx, idxs, slot)
             self._task_q.put((gen, seq, epoch, batch_idx, slot, idxs))
         dt = time.perf_counter() - t0
+        if self._tele is not None and self._rebuilds_counter is not None:
+            self._rebuilds_counter.inc()
         from ..obs.events import get_sink
 
         get_sink().emit("ring_rebuild", reason=why[:500],
@@ -645,6 +705,9 @@ class ShmRingInput:
                             track=f"ring-worker-{wid}",
                             args={"slot": slot, "epoch": epoch,
                                   "batch": batch_idx})
+                    if self._tele is not None:
+                        self._observe_render(wid, render_s)
+                        self._batches_total.inc()
                     try:
                         yield self._views[slot]
                     finally:
@@ -660,6 +723,8 @@ class ShmRingInput:
                     submit()
                 if exhausted and next_yield >= next_submit:
                     return
+                t_stall = time.perf_counter() if self._tele is not None \
+                    else 0.0
                 try:
                     kind, g, seq, payload = self._next_done(
                         what=f"batch "
@@ -670,6 +735,11 @@ class ShmRingInput:
                         raise
                     self._rebuild(meta, completed, gen, str(e))
                     continue
+                if self._tele is not None:
+                    # blocked with nothing ready to yield: the workers
+                    # (or the slot budget) are behind the consumer
+                    self._stall_s.inc(time.perf_counter() - t_stall)
+                    self._stalls.inc()
                 if g != gen:  # stale completion (or stale failure) from an
                     # abandoned generator: reclaim the slot, don't let an
                     # old epoch's error poison this one

@@ -14,7 +14,8 @@ modules, with torch counterparts where the JAX ones read XLA).
   waterfalls (``ReqTrace``, ``NULL_NODE``, process-default
   ``set_reqtrace`` / ``get_reqtrace``);
 - :mod:`http`     — background ``/metrics`` + ``/snapshot`` +
-  ``/healthz`` + ``/slo`` + ``/fleet`` endpoint (``MetricsServer``,
+  ``/healthz`` + ``/slo`` + ``/fleet`` + ``/history`` + ``/query``
+  endpoint (``MetricsServer``,
   ``ROUTES``);
 - :mod:`recompile` — first runs of unwarmed lane shapes after warmup,
   the port's compile event (``CompileWatch``);
@@ -27,12 +28,16 @@ modules, with torch counterparts where the JAX ones read XLA).
   wire: worker-side telemetry publisher (``WorkerTelemetry``), the
   parent-side merge registry (``FleetRegistry``; served at ``/fleet``)
   and the crash flight recorder (``build_postmortem``,
-  ``verify_postmortem``).
-
-The JAX package's history store, health sentinel and run bundle are not
-ported yet (ROADMAP.md, Queue 1: telemetry); ``MetricsServer`` takes a
-health source duck-typed, and its ``/history`` and ``/query`` routes come
-with the history store.
+  ``verify_postmortem``);
+- :mod:`health`   — loss/grad-norm divergence sentinel with a
+  ``warn|halt|skip_step`` policy (``HealthSentinel``,
+  ``DivergenceError``; its state backs ``/healthz``);
+- :mod:`history`  — bounded multi-resolution telemetry history with
+  explicit gap accounting, strict-JSON shard persistence, offline
+  replay and the derived control-plane signal feed (``HistoryStore``;
+  served at ``/history`` + ``/query``; fitted into replica counts by
+  ``serve.capacity.CapacityModel``);
+- :mod:`run`      — the per-run bundle (``RunTelemetry``).
 """
 from .events import (
     SCHEMA_VERSION,
@@ -55,6 +60,14 @@ from .fleet import (
     read_flight_records,
     verify_postmortem,
 )
+from .health import POLICIES, DivergenceError, HealthSentinel
+from .history import (
+    HISTORY_SCHEMA,
+    HistoryStore,
+    discover_history_shards,
+    history_path_for,
+    series_key,
+)
 from .http import ROUTES, MetricsServer
 from .memory import DeviceMemory
 from .recompile import COMPILE_EVENT, CompileWatch
@@ -74,6 +87,7 @@ from .reqtrace import (
     get_reqtrace,
     set_reqtrace,
 )
+from .run import RunTelemetry, resolve_sink_path
 from .slo import Objective, SLOTracker, default_objectives
 from .trace import (
     NullTraceRecorder,
@@ -83,14 +97,18 @@ from .trace import (
 )
 
 __all__ = [
-    "COMPILE_EVENT", "INPUT_BOUND_FRAC", "NULL_NODE", "ROUTES",
-    "SCHEMA_VERSION", "TELEM_VERSION", "CompileWatch", "Counter",
-    "DeviceMemory", "EventSink", "FleetRegistry", "Gauge", "Histogram",
-    "MetricsServer", "NullReqTrace", "NullSink", "NullTraceRecorder",
-    "Objective", "Registry", "ReqTrace", "SLOTracker", "StepPhases",
-    "TraceRecorder", "WorkerTelemetry", "build_postmortem", "decode_telem",
-    "default_objectives", "flow_id", "get_registry", "get_reqtrace",
-    "get_sink", "get_tracer", "read_block", "read_events",
-    "read_flight_records", "set_reqtrace", "set_sink", "set_tracer",
-    "strict_dump", "strict_dumps", "verify_postmortem",
+    "COMPILE_EVENT", "HISTORY_SCHEMA", "INPUT_BOUND_FRAC", "NULL_NODE",
+    "POLICIES", "ROUTES", "SCHEMA_VERSION", "TELEM_VERSION",
+    "CompileWatch", "Counter", "DeviceMemory", "DivergenceError",
+    "EventSink", "FleetRegistry", "Gauge", "HealthSentinel", "Histogram",
+    "HistoryStore", "MetricsServer", "NullReqTrace", "NullSink",
+    "NullTraceRecorder", "Objective", "Registry", "ReqTrace",
+    "RunTelemetry", "SLOTracker", "StepPhases", "TraceRecorder",
+    "WorkerTelemetry", "build_postmortem", "decode_telem",
+    "default_objectives", "discover_history_shards", "flow_id",
+    "get_registry", "get_reqtrace", "get_sink", "get_tracer",
+    "history_path_for", "read_block", "read_events",
+    "read_flight_records", "resolve_sink_path", "series_key",
+    "set_reqtrace", "set_sink", "set_tracer", "strict_dump",
+    "strict_dumps", "verify_postmortem",
 ]

@@ -1,8 +1,5 @@
 """Background metrics endpoint over one :class:`Registry` (the port's
-own copy of ``improved_body_parts_tpu/obs/http.py`` without the
-``/history`` and ``/query`` routes, which come with the history store;
-until then they are unknown paths.  The ``/healthz`` health source is
-duck-typed).
+own copy of ``improved_body_parts_tpu/obs/http.py``).
 
 A daemon-threaded ``ThreadingHTTPServer``; every route is declared once
 in :data:`ROUTES` — the same table drives handler dispatch, the
@@ -18,7 +15,16 @@ Route semantics beyond the table:
 - ``/slo`` answers 503 while any class's alarm fires, so a
   threshold-less consumer can gate on status alone; 404 when no
   tracker was wired;
-- ``/fleet`` answers 404 when its source was not wired.
+- ``/fleet`` and ``/history`` answer 404 when their source was not
+  wired;
+- ``/query`` reads one history series over time: ``?series=<key>``
+  (required; the key format is the snapshot key,
+  ``name{label="v",…}``), optional ``since=<t>`` (monotonic seconds,
+  same axis as event ``t``), ``step=<s>`` (0/absent = raw ring,
+  otherwise the finest aggregate level at least that wide) and
+  ``limit=`` (clamped to the store's bound) — responses are bounded no
+  matter what retention the store carries.  400 on malformed
+  parameters, 404 for an unknown series.
 
 ``HEAD`` is answered for every route with the same status and headers
 and no body — LB probes default to HEAD, and an unanswered method must
@@ -37,6 +43,7 @@ from __future__ import annotations
 import json
 import threading
 from typing import Callable, Optional
+from urllib.parse import parse_qs
 
 from .events import _definan
 from .registry import Registry
@@ -52,6 +59,9 @@ ROUTES = (
     ("/healthz", "run-health state (503 once diverged)"),
     ("/slo", "SLO / error-budget document (503 while any alarm fires)"),
     ("/fleet", "per-worker fleet document"),
+    ("/history", "telemetry-history store document"),
+    ("/query", "one history series over time "
+               "(?series=&since=&step=&limit=)"),
 )
 
 __doc__ += "".join(f"\n- ``{path}`` — {desc}" for path, desc in ROUTES)
@@ -73,7 +83,8 @@ class MetricsServer:
                  extra: Optional[Callable[[], dict]] = None,
                  health: Optional[Callable[[], dict]] = None,
                  slo: Optional[Callable[[], dict]] = None,
-                 fleet: Optional[Callable[[], dict]] = None):
+                 fleet: Optional[Callable[[], dict]] = None,
+                 history=None):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         reg = registry
@@ -81,6 +92,7 @@ class MetricsServer:
         health_fn = health
         slo_fn = slo
         fleet_fn = fleet
+        history_store = history  # obs.history.HistoryStore (doc/query)
 
         def _json_body(obj) -> bytes:
             # an empty histogram's quantiles are real NaNs; _definan
@@ -91,37 +103,73 @@ class MetricsServer:
         # ------------------------------------------------ route handlers
         # each returns (code, body, content_type); raises _Unavailable
         # for a declared-but-unwired source (→ 404)
-        def _r_metrics():
+        def _r_metrics(query):
             return 200, reg.prometheus().encode(), PROMETHEUS_CONTENT_TYPE
 
-        def _r_snapshot():
+        def _r_snapshot(query):
             snap = {"metrics": reg.snapshot()}
             if extra_fn is not None:
                 snap.update(extra_fn())
             return 200, _json_body(snap), "application/json"
 
-        def _r_healthz():
+        def _r_healthz(query):
             state = (dict(health_fn()) if health_fn is not None
                      else {"status": "ok"})
             code = 200 if state.get("status", "ok") == "ok" else 503
             # the diverged body carries the NaN loss itself
             return code, _json_body(state), "application/json"
 
-        def _r_slo():
+        def _r_slo(query):
             if slo_fn is None:
                 raise _Unavailable("no SLO tracker wired on this endpoint")
             state = dict(slo_fn())
             code = 200 if state.get("status", "ok") != "alarm" else 503
             return code, _json_body(state), "application/json"
 
-        def _r_fleet():
+        def _r_fleet(query):
             if fleet_fn is None:
                 raise _Unavailable("no fleet source wired on this endpoint")
             return 200, _json_body(dict(fleet_fn())), "application/json"
 
+        def _r_history(query):
+            if history_store is None:
+                raise _Unavailable(
+                    "no history store wired on this endpoint")
+            return 200, _json_body(history_store.doc()), "application/json"
+
+        def _r_query(query):
+            if history_store is None:
+                raise _Unavailable(
+                    "no history store wired on this endpoint")
+            params = parse_qs(query)
+            series = params.get("series", [None])[0]
+            if not series:
+                return (400, _json_body({"error": "series= is required"}),
+                        "application/json")
+            try:
+                since = (float(params["since"][0])
+                         if "since" in params else None)
+                step = (float(params["step"][0])
+                        if "step" in params else None)
+                limit = (int(params["limit"][0])
+                         if "limit" in params else 2000)
+            except (ValueError, IndexError):
+                return (400, _json_body(
+                    {"error": "since=/step= must be numbers, "
+                              "limit= an integer"}), "application/json")
+            try:
+                doc = history_store.query(series, since=since, step=step,
+                                          limit=limit)
+            except KeyError:
+                return (404, _json_body(
+                    {"error": f"unknown series {series!r}",
+                     "keys": history_store.keys()}), "application/json")
+            return 200, _json_body(doc), "application/json"
+
         handlers = {"/metrics": _r_metrics, "/snapshot": _r_snapshot,
                     "/healthz": _r_healthz, "/slo": _r_slo,
-                    "/fleet": _r_fleet}
+                    "/fleet": _r_fleet, "/history": _r_history,
+                    "/query": _r_query}
         # the dispatch table and the declared surface must be the same
         # set — a new route added to one place only fails loudly at
         # import, not silently at scrape time
@@ -130,14 +178,14 @@ class MetricsServer:
 
         class Handler(BaseHTTPRequestHandler):
             def _handle(self):
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
                 fn = handlers.get(path)
                 try:
                     if fn is None:
                         # send_error handles HEAD itself (headers only)
                         self.send_error(404, _unknown_route_message())
                         return
-                    code, body, ctype = fn()
+                    code, body, ctype = fn(query)
                 except _Unavailable as e:
                     self.send_error(404, str(e))
                     return

@@ -35,12 +35,18 @@ def device_prefetch(batches: Iterable, device, depth: int = 2,
     Exceptions of the source (or of the copy) are raised in the consumer.
     Abandoning the generator (an error in the step, KeyboardInterrupt)
     stops the producer and drains the queue, so the batches in flight are
-    released.  ``spatial_shard`` and ``phase_stats`` (partitioning and
-    telemetry) are not ported and accept only their defaults."""
-    if spatial_shard or phase_stats is not None:
+    released.
+
+    ``phase_stats`` (an ``obs.StepPhases``) attributes the consumer's
+    wall clock: time blocked here waiting on the prefetch queue is DATA
+    WAIT (the input pipeline fell behind), time the consumer holds the
+    thread between batches is COMPUTE (device step + dispatch +
+    readback).  ``spatial_shard`` (partitioning) is not ported and
+    accepts only its default."""
+    if spatial_shard:
         raise NotImplementedError(
-            "device_prefetch: spatial_shard / phase_stats are not ported "
-            "yet (ROADMAP.md, queue 1: partitioning and telemetry)")
+            "device_prefetch: spatial_shard is not ported yet "
+            "(ROADMAP.md, queue 1: parallel training)")
     device = torch.device(device)
     if device.type == "cuda":
         place = _CudaPlacer(device)
@@ -48,7 +54,10 @@ def device_prefetch(batches: Iterable, device, depth: int = 2,
         place = _cpu_place
     else:
         raise ValueError(f"unsupported device {device}")
-    return _device_prefetch(batches, place, depth)
+    it = _device_prefetch(batches, place, depth)
+    if phase_stats is not None:
+        return phase_stats.attribute(it)
+    return it
 
 
 def _cpu_place(batch):

@@ -31,13 +31,14 @@ requests to the card (the port's own copies of the JAX package's
 - ``policy``  — :class:`PolicyClient` + :func:`submit_with_retry`:
   client-side deadlines, jittered retry on ``ServerOverloaded``, hedged
   dispatch for tail latency.
-
-The JAX package's ``capacity`` model (fitted from its telemetry history
-store) is not ported yet (ROADMAP.md, Queue 1: telemetry).
+- ``capacity`` — :class:`CapacityModel`: per-replica saturation fitted
+  from the telemetry history store, ``replicas_needed(target_qps,
+  objective)``.
 """
 from .artifacts import cascade_predictors, checkpoint_predictor
 from .batcher import DeadlineExceeded, DynamicBatcher, ServerOverloaded
 from .breaker import CircuitBreaker
+from .capacity import CapacityModel
 from .cascade import CascadeEngine, CascadeMetrics, EscalationPolicy
 from .metrics import HOPS, ServeMetrics
 from .policy import PolicyClient, PolicyStats, jittered_backoff, submit_with_retry
@@ -45,7 +46,7 @@ from .pool import EnginePool
 from .router import ProcessRouter, ProcessWorkerEngine
 from .warmup import pow2_batch_sizes, precompile
 
-__all__ = ["HOPS", "CascadeEngine", "CascadeMetrics", "CircuitBreaker",
+__all__ = ["HOPS", "CapacityModel", "CascadeEngine", "CascadeMetrics", "CircuitBreaker",
            "DeadlineExceeded", "DynamicBatcher", "EnginePool",
            "EscalationPolicy", "PolicyClient", "PolicyStats",
            "ProcessRouter", "ProcessWorkerEngine",

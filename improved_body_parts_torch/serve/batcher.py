@@ -328,13 +328,21 @@ class DynamicBatcher:
         self._fetchers = []
         # a submit that raced the _running flip may have enqueued behind
         # the sentinel; fail those futures rather than hang their callers
+        unread_stop = False
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if req is not _STOP and req is not _KICK:
+            if req is _STOP:
+                unread_stop = True
+            elif req is not _KICK:
                 self._finish(req, error=RuntimeError("batcher stopped"))
+        if unread_stop:
+            # the dispatcher was still in a dispatch when the drain ran
+            # out and never read its sentinel: hand it back, or the
+            # thread waits on this queue for the life of the process
+            self._queue.put(_STOP)
         if deadline is not None:
             # bounded decode drain: poll the admitted-set down instead
             # of an unbounded pool.shutdown(wait=True)
@@ -605,6 +613,12 @@ class DynamicBatcher:
             # time or touch the live generation's accounting
             for r in reqs:
                 self._finish(r, error=RuntimeError("batcher restarted"))
+            return
+        # a bounded stop fails what it strands, the requests still in a
+        # bucket included; the dispatcher flushes those buckets as it
+        # leaves, and they cost no device time
+        reqs = [r for r in reqs if not r.finished]
+        if not reqs:
             return
         if any(r.deadline is not None for r in reqs):
             # last check before device work: expired requests fall out

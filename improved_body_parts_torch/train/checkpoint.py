@@ -35,10 +35,12 @@ the schedule's update count), ``step``, ``epoch``, ``train_loss``,
   the commit marker, then retention GC.  A writer failure is re-raised
   from the next ``save()`` or ``wait()``.
 
-Not ported yet (ROADMAP.md, Queue 1): the device-topology stamp, and the registry metrics (``checkpoint_seconds``,
-``checkpoint_bytes``, ``checkpoints_retained``).  The manager's spans go
-to the port's ``obs.trace`` tracer and one ``checkpoint`` event a commit
-to its ``obs.events`` sink.
+The manager's spans go to the port's ``obs.trace`` tracer, one
+``checkpoint`` event a commit to its ``obs.events`` sink, and its
+registry metrics (``checkpoint_seconds{phase=blocked|snapshot|serialize|
+commit}``, ``checkpoint_bytes``, ``checkpoints_retained``) to
+``registry`` (the process default unless a run passes its own).  Not
+ported yet (ROADMAP.md, Queue 1): the device-topology stamp.
 """
 from __future__ import annotations
 
@@ -354,8 +356,12 @@ class CheckpointManager:
 
     def __init__(self, directory: str, *, async_save: bool = True,
                  keep_last_n: int = 0, keep_best: bool = True,
-                 milestone_every: int = 0, _commit_delay_s: float = 0.0):
+                 milestone_every: int = 0, registry=None,
+                 _commit_delay_s: float = 0.0):
         self.directory = os.path.abspath(directory)
+        # metrics registry: the process-wide default unless a run plumbs
+        # its own
+        self._reg = registry
         self.async_save = bool(async_save)
         self.keep_last_n = int(keep_last_n)
         self.keep_best = bool(keep_best)
@@ -391,14 +397,17 @@ class CheckpointManager:
                                    meta.get("train_loss", 0.0))))
 
     @classmethod
-    def from_config(cls, directory: str, train_cfg) -> "CheckpointManager":
+    def from_config(cls, directory: str, train_cfg,
+                    registry=None) -> "CheckpointManager":
         """Build from ``TrainConfig`` knobs (``async_checkpoint``,
-        ``keep_last_n``, ``keep_best``, ``milestone_every``)."""
+        ``keep_last_n``, ``keep_best``, ``milestone_every``), reporting
+        to ``registry`` (a run's own, or the process default)."""
         return cls(directory,
                    async_save=getattr(train_cfg, "async_checkpoint", True),
                    keep_last_n=getattr(train_cfg, "keep_last_n", 0),
                    keep_best=getattr(train_cfg, "keep_best", True),
-                   milestone_every=getattr(train_cfg, "milestone_every", 0))
+                   milestone_every=getattr(train_cfg, "milestone_every", 0),
+                   registry=registry)
 
     # ------------------------------------------------------------- save
     def save(self, state: TrainState, epoch: int, train_loss: float,
@@ -439,7 +448,14 @@ class CheckpointManager:
             if self._error is not None:
                 err, self._error = self._error, None
                 raise err
-        self.blocked_seconds.append(time.perf_counter() - t_start)
+        blocked = time.perf_counter() - t_start
+        self.blocked_seconds.append(blocked)
+        self._observe("blocked", blocked)
+        self._observe("snapshot", snapshot_s)
+        self._registry().gauge(
+            "checkpoint_bytes",
+            "host-snapshot size of the last checkpoint payload").set(
+                float(base_meta["payload_bytes"]))
         return path
 
     def record_metric(self, epoch: int, name: str, value: float,
@@ -527,6 +543,8 @@ class CheckpointManager:
                 retained = self._gc()
             commit_s = time.perf_counter() - t0
             self.write_seconds.append(serialize_s + commit_s)
+            self._observe("serialize", serialize_s)
+            self._observe("commit", commit_s)
             get_sink().emit(
                 "checkpoint", epoch=epoch, path=path,
                 bytes=base_meta["payload_bytes"],
@@ -546,6 +564,7 @@ class CheckpointManager:
         entries = _epoch_dirs(self.directory)
         committed = {e: p for e, p in entries if is_committed(p)}
         if self.keep_last_n <= 0:
+            self._retained_gauge().set(float(len(committed)))
             return len(committed)
         keep = set(sorted(committed)[-self.keep_last_n:])
         if self.keep_best:
@@ -567,4 +586,24 @@ class CheckpointManager:
         for e, p in committed.items():
             if e not in keep:
                 shutil.rmtree(p, ignore_errors=True)
+        self._retained_gauge().set(float(len(keep)))
         return len(keep)
+
+    # -------------------------------------------------------------- obs
+    def _registry(self):
+        if self._reg is not None:
+            return self._reg
+        from ..obs.registry import get_registry
+
+        return get_registry()
+
+    def _retained_gauge(self):
+        return self._registry().gauge(
+            "checkpoints_retained",
+            "committed checkpoints kept after retention GC")
+
+    def _observe(self, phase: str, seconds: float) -> None:
+        self._registry().histogram(
+            "checkpoint_seconds",
+            "checkpoint phase durations (blocked = train-loop stall)",
+            labels={"phase": phase}).observe(seconds)

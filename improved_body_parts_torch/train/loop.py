@@ -9,17 +9,23 @@ the copy and the host's work on the next batch overlap the step the
 device is running.  The losses stay on the device and
 are read back once every ``print_freq`` steps (eval: ``readback_freq``
 batches), the reference's throttled readback (train_distributed.py:
-272-298).  ``fit`` runs the epochs with the async per-epoch checkpoint
-(``train.checkpoint.CheckpointManager``) and the append-only epoch log.
+272-298).  At that readback the losses (and, for a step built with
+``health=True``, the gradient norms) of the window are stacked and read
+back in one copy.  ``fit`` runs the epochs with the async per-epoch
+checkpoint (``train.checkpoint.CheckpointManager``) and the append-only
+epoch log; ``telemetry=`` (an ``obs.RunTelemetry``) reports each window
+and epoch through the run's bundle.
 """
 from __future__ import annotations
 
+import math
 import os
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
 from ..config import Config
+from ..obs.health import DivergenceError
 from ..obs.trace import get_tracer
 from ..utils import AverageMeter, StepTimer
 from . import checkpoint as ckpt
@@ -43,7 +49,39 @@ def _only_none(name: str, value, where: str = "train_epoch") -> None:
     if value is not None:
         raise NotImplementedError(
             f"{where}: {name} is not ported yet (ROADMAP.md, queue 1: "
-            "telemetry and supervisor hooks, multi-card training)")
+            "multi-card training)")
+
+
+def _read_window(pending) -> List[tuple]:
+    """Read back one window's (device loss, batch size, device grad norm
+    or None) triples in ONE device→host copy: the losses and the grad
+    norms are stacked into one tensor.  Returns (loss, batch size, grad
+    norm or None) with Python floats."""
+    if not pending:
+        return []
+    scalars = [v for v, _, _ in pending]
+    scalars += [g for _, _, g in pending if g is not None]
+    # float64 holds every float32 value exactly, so each read equals
+    # float() of its own scalar
+    vals = torch.stack([torch.as_tensor(s).detach().reshape(()).double()
+                        for s in scalars]).tolist()
+    n = len(pending)
+    gns = iter(vals[n:])
+    return [(vals[i], bs, next(gns) if g is not None else None)
+            for i, (_, bs, g) in enumerate(pending)]
+
+
+def _window_health(vals):
+    """Summarize one window for the sentinel: the first non-finite loss
+    (else the last), the first non-finite grad norm (else the window
+    max) — a single check per window, worst case wins."""
+    w_losses = [v for v, _, _ in vals]
+    loss_h = next((v for v in w_losses if not math.isfinite(v)),
+                  w_losses[-1])
+    gns = [g for _, _, g in vals if g is not None]
+    if not gns:
+        return loss_h, None
+    return loss_h, next((g for g in gns if not math.isfinite(g)), max(gns))
 
 
 def train_epoch(state: TrainState, train_step: Callable,
@@ -64,38 +102,150 @@ def train_epoch(state: TrainState, train_step: Callable,
     :class:`train.supervisor.StopRequested`, which unwinds through
     ``fit``'s flush of the in-flight checkpoint; the partial epoch is
     dropped and a resume restarts it from the last committed checkpoint.
-    ``mesh`` and ``telemetry`` accept only None here."""
-    for name, value in (("mesh", mesh), ("telemetry", telemetry)):
-        _only_none(name, value)
+
+    ``telemetry`` (an ``obs.RunTelemetry``) turns each print window into
+    a structured ``train_step`` event — loss, step time, imgs/s, and the
+    data-wait vs compute split (its ``StepPhases`` wrapped around
+    ``batches``) — and marks the compile watch warm after the first
+    window's readback.  Each window also records a ``step_window`` trace
+    span, samples the device-memory gauges into the stream and feeds the
+    run-health sentinel: a step built with ``make_train_step(
+    health=True)`` returns (state, loss, grad_norm), and the grad norm is
+    read back HERE, stacked with the window's losses — under the
+    ``halt`` policy a divergent window raises
+    :class:`obs.DivergenceError`.  Any other exception out of the loop
+    emits the memory forensics (largest live tensors by shape/dtype)
+    into the event stream before it propagates.  ``mesh`` accepts only
+    None here."""
+    _only_none("mesh", mesh)
     print_freq = print_freq or config.train.print_freq
     dev = _model_device(state)
     losses = AverageMeter()
     timer = StepTimer()
-    # (device loss, batch size) pairs not read back yet: the weight is
-    # recorded now, so a trailing partial batch is averaged at its own
+    # (device loss, batch size, device grad-norm-or-None) triples not read
+    # back yet: the weight is recorded now, so a trailing partial batch is
+    # averaged at its own
     pending = []
-    for step_idx, batch in enumerate(batches):
-        global_batch = batch[0].shape[0]
-        out = train_step(state, *to_device(batch, dev))
-        state, loss = out[0], out[1]
-        pending.append((loss, global_batch))
-        if (step_idx + 1) % print_freq == 0:
-            # one device sync per print_freq steps
-            for v, bs in pending:
-                losses.update(float(v), bs)
-            pending.clear()
-            dt = timer.mark(print_freq)
-            if is_lead_host:
-                log_fn(f"==> Epoch [{epoch}][{step_idx + 1}] "
-                       f"loss {losses.val:.6f} ({losses.avg:.6f}) "
-                       f"imgs/s {global_batch / max(dt, 1e-9):.1f}")
-            chaos_kill_point("window")
-            if should_stop is not None and should_stop():
-                raise StopRequested(
-                    f"stop requested at epoch {epoch} step {step_idx + 1} "
-                    "(window boundary)")
-    for v, bs in pending:
-        losses.update(float(v), bs)
+
+    phases = telemetry.phases("train") if telemetry is not None else None
+    if phases is not None:
+        batches = phases.attribute(batches)
+    trace = telemetry.trace if telemetry is not None else None
+    if telemetry is not None:
+        g_loss = telemetry.registry.gauge(
+            "train_loss", "windowed loss readback (losses.val)")
+        g_ips = telemetry.registry.gauge(
+            "train_imgs_per_sec", "window throughput")
+        h_step = telemetry.registry.histogram(
+            "train_step_seconds", "per-step wall time (window mean)")
+        window_t0 = phases.totals()
+        windows = 0
+        w_trace_t0 = trace.now() if trace.enabled else 0.0
+    global_batch = None
+
+    def close_window(vals, n_steps, step_no, dt, partial=False):
+        """Everything one readback window owes the telemetry bundle —
+        warm mark, split diff, gauges, trace span, stream record, health
+        check, memory sample — one implementation for the in-loop and
+        trailing-partial sites."""
+        nonlocal window_t0, windows, w_trace_t0
+        # the readback that produced `vals` waited for the device: every
+        # steady-state lane shape has run from here on
+        telemetry.mark_warm("epoch-end readback" if partial
+                            else "first train window readback")
+        wait, hold = phases.totals()
+        d_wait = wait - window_t0[0]
+        d_hold = hold - window_t0[1]
+        window_t0 = (wait, hold)
+        imgs_s = global_batch / max(dt, 1e-9)
+        g_loss.set(losses.val)
+        g_ips.set(imgs_s)
+        h_step.observe(dt)
+        if trace.enabled:
+            # own track: a window closes mid-hold, so on the consumer's
+            # track it would partially overlap the boundary batch's
+            # compute span
+            t_now = trace.now()
+            span_args = {"epoch": epoch, "step": step_no,
+                         "loss": round(losses.val, 6)}
+            if partial:
+                span_args["partial"] = n_steps
+            trace.add_span_rel("step_window", w_trace_t0,
+                               t_now - w_trace_t0, track="train-windows",
+                               args=span_args)
+            w_trace_t0 = t_now
+        windows += 1
+        # a trailing partial window always emits (an epoch shorter than
+        # print_freq would otherwise emit nothing); full windows honor
+        # the step_sample thinning
+        if partial or windows % telemetry.step_sample == 0:
+            fields = dict(
+                epoch=epoch, step=step_no,
+                loss=round(losses.val, 6), loss_avg=round(losses.avg, 6),
+                step_s=round(dt, 6), imgs_per_sec=round(imgs_s, 2),
+                data_wait_s=round(d_wait, 6), compute_s=round(d_hold, 6))
+            if partial:
+                fields["partial_window"] = n_steps
+            telemetry.emit("train_step", **fields)
+        loss_h, gn_h = _window_health(vals)
+        # may raise DivergenceError (on_divergence=halt)
+        telemetry.health.check(loss_h, gn_h, step=step_no, epoch=epoch)
+        telemetry.memory.sample(emit=True, epoch=epoch, step=step_no)
+
+    step_idx = -1
+    try:
+        for step_idx, batch in enumerate(batches):
+            global_batch = batch[0].shape[0]
+            out = train_step(state, *to_device(batch, dev))
+            if len(out) == 3:  # health-instrumented step
+                state, loss, gnorm = out
+            else:
+                (state, loss), gnorm = out, None
+            pending.append((loss, global_batch, gnorm))
+            if (step_idx + 1) % print_freq == 0:
+                # one device sync per print_freq steps
+                vals = _read_window(pending)
+                pending.clear()
+                for v, bs, _ in vals:
+                    losses.update(v, bs)
+                dt = timer.mark(print_freq)
+                if telemetry is not None:
+                    # may raise DivergenceError (on_divergence=halt)
+                    close_window(vals, print_freq, step_idx + 1, dt)
+                if is_lead_host:
+                    log_fn(f"==> Epoch [{epoch}][{step_idx + 1}] "
+                           f"loss {losses.val:.6f} ({losses.avg:.6f}) "
+                           f"imgs/s {global_batch / max(dt, 1e-9):.1f}")
+                chaos_kill_point("window")
+                if should_stop is not None and should_stop():
+                    raise StopRequested(
+                        f"stop requested at epoch {epoch} step "
+                        f"{step_idx + 1} (window boundary)")
+        n_tail = len(pending)
+        tail_vals = _read_window(pending)
+        pending.clear()
+        for v, bs, _ in tail_vals:
+            losses.update(v, bs)
+        if telemetry is not None and n_tail:
+            # trailing partial window (an epoch shorter than print_freq
+            # would otherwise emit nothing, and never mark the watch warm)
+            close_window(tail_vals, n_tail, step_idx + 1,
+                         timer.mark(n_tail), partial=True)
+    except Exception as e:
+        if telemetry is not None and not isinstance(
+                e, (DivergenceError, StopRequested)):
+            # the step loop died: name the resident device tensors before
+            # unwinding (an OOM post-mortem's first question); a sentinel
+            # halt carries its own diagnosis.  A failing emit must not
+            # replace the original exception
+            try:
+                msg = str(e)
+                telemetry.memory.emit_forensics(
+                    reason=f"{type(e).__name__}: {msg[:300]}", epoch=epoch,
+                    oom="out of memory" in msg.lower())
+            except Exception:  # noqa: BLE001 — diagnostics only
+                pass
+        raise
     return state, losses.avg
 
 
@@ -160,16 +310,22 @@ def fit(state: TrainState, train_step: Callable, config: Config,
     window readback (:func:`train_epoch`) and at each epoch boundary but
     the last: there the epoch's save has begun, and the unwind flushes it
     before :class:`train.supervisor.StopRequested` leaves ``fit``, so the
-    stop loses no completed epoch.  ``mesh`` and ``telemetry`` accept only
-    None here (ROADMAP.md)."""
-    for name, value in (("mesh", mesh), ("telemetry", telemetry)):
-        _only_none(name, value, "fit")
+    stop loses no completed epoch.
+
+    ``telemetry`` (an ``obs.RunTelemetry``) reaches every epoch's
+    :func:`train_epoch` and gets an ``epoch`` event at each boundary (the
+    train loss, the val loss when eval ran, ``saved`` when the epoch
+    saved); the manager fit builds reports its checkpoint metrics to
+    the bundle's registry.  ``mesh`` accepts only None here (ROADMAP.md)."""
+    _only_none("mesh", mesh, "fit")
     checkpoint_dir = checkpoint_dir or config.train.checkpoint_dir
     tr = config.train
     owns_manager = checkpoint_manager is None
     manager = checkpoint_manager
     if manager is None:
-        manager = ckpt.CheckpointManager.from_config(checkpoint_dir, tr)
+        manager = ckpt.CheckpointManager.from_config(
+            checkpoint_dir, tr,
+            registry=telemetry.registry if telemetry is not None else None)
     save_freq = max(1, int(tr.save_freq or 1))
     eval_freq = max(1, int(tr.eval_freq or 1))
     has_eval = eval_step is not None and make_eval_batches is not None
@@ -178,7 +334,8 @@ def fit(state: TrainState, train_step: Callable, config: Config,
         for epoch in range(start_epoch, start_epoch + epochs):
             state, train_loss = train_epoch(
                 state, train_step, make_batches(epoch), config, epoch,
-                log_fn=log_fn, should_stop=should_stop)
+                log_fn=log_fn, telemetry=telemetry,
+                should_stop=should_stop)
             _log_line(checkpoint_dir,
                       f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
             do_save = epoch % save_freq == 0 or epoch == last_epoch
@@ -207,12 +364,19 @@ def fit(state: TrainState, train_step: Callable, config: Config,
                 best_loss = min(best_loss, metric)
             if do_save:
                 manager.record_metric(epoch, metric_name, metric, best_loss)
+            if telemetry is not None:
+                fields = {"epoch": epoch, "train_loss": round(train_loss, 6)}
+                if val_loss is not None:
+                    fields["val_loss"] = round(val_loss, 6)
+                if do_save:
+                    fields["saved"] = True
+                telemetry.emit("epoch", **fields)
             if should_stop is not None and should_stop() \
                     and epoch != last_epoch:
                 raise StopRequested(
                     f"stop requested at epoch {epoch} boundary")
     except BaseException:
-        # a crash must still flush the in-flight write (the run that died
+        # a sentinel halt (obs.DivergenceError) or any crash must still flush the in-flight write (the run that died
         # is the one whose last checkpoint matters), without letting a
         # writer failure mask the original exception
         try:

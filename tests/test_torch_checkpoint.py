@@ -451,7 +451,7 @@ def test_fit_flushes_the_write_when_an_epoch_raises(tmp_path):
     assert is_committed(os.path.join(str(tmp_path), "epoch_0"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit(_state(), lambda s, x: (s, torch.tensor(1.0)), cfg,
-            make_batches, epochs=1, telemetry=object())
+            make_batches, epochs=1, mesh=object())
 
 
 def test_checkpoint_spans_and_events(tmp_path):

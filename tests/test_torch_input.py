@@ -237,5 +237,10 @@ def test_prefetch_early_abandon_stops_producer_and_refuses_options():
     assert not alive, "producer thread still running after close()"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         device_prefetch(_host_batches(1), "cpu", spatial_shard=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_prefetch(_host_batches(1), "cpu", phase_stats=object())
+    # phase_stats is ported: it attributes the consumer's wall clock
+    from improved_body_parts_torch.obs import Registry, StepPhases
+
+    phases = StepPhases(Registry(), "train")
+    assert len(list(device_prefetch(_host_batches(3), "cpu",
+                                    phase_stats=phases))) == 3
+    assert phases.batches.value == 3

@@ -562,6 +562,51 @@ def test_drain_deadline_fails_stranded_futures(warm_pred):
     gate.set()
 
 
+class CountingGate(GatedPredictor):
+    """A ``GatedPredictor`` that counts the dispatches that reach it."""
+
+    def __init__(self, inner, gate):
+        super().__init__(inner, gate)
+        self.calls = 0
+
+    def predict_decoded_async(self, *a, **kw):
+        self.calls += 1
+        return super().predict_decoded_async(*a, **kw)
+
+    def predict_decoded_batch_async(self, *a, **kw):
+        self.calls += 1
+        return super().predict_decoded_batch_async(*a, **kw)
+
+
+def test_abrupt_stop_lets_the_dispatcher_leave(warm_pred):
+    """``stop(drain_timeout_s=0)`` while a dispatch is parked on the
+    device and another bucket still waits: every future fails at once,
+    and when the device returns the dispatcher reads the sentinel the
+    stop handed back and leaves, flushing the waiting bucket without a
+    second dispatch (its request already failed)."""
+    gate = threading.Event()
+    gated = CountingGate(warm_pred, gate)
+    server = DynamicBatcher(gated, max_batch=2, max_wait_ms=60_000,
+                            use_native=False,
+                            eager_idle_flush=False).start()
+    futs = [server.submit(_img(SIZE_B))]               # waits in bucket B
+    futs += [server.submit(_img(SIZE_A)) for _ in range(2)]  # A fills
+    deadline = time.perf_counter() + 30
+    while gated.calls < 1 and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    assert gated.calls == 1                            # A parked
+    dispatcher = server._dispatcher
+    server.stop(drain_timeout_s=0.0)
+    for f in futs:
+        with pytest.raises(RuntimeError, match="drain deadline"):
+            f.result(timeout=0)
+    assert dispatcher.is_alive()
+    gate.set()
+    dispatcher.join(timeout=30)
+    assert not dispatcher.is_alive()
+    assert gated.calls == 1
+
+
 def test_stop_without_deadline_still_drains_everything(warm_pred):
     img = _img(SIZE_A)
     ref = _reference(warm_pred, img)

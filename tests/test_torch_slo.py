@@ -10,11 +10,12 @@ package's, on the CPU.
   ``/slo`` document after every record (burn rates, budgets, alarm
   transitions), and the same ``slo_alarm`` events; the scenarios are
   those of ``tests/test_slo.py``.
-- ``MetricsServer``: the route table is the JAX package's without
-  ``/history`` and ``/query`` (they come with the history store, so
-  until then they are unknown paths); the unknown-route 404 body is the
-  JAX package's over that table; ``/slo`` answers 200 / 503 / 404 and
-  HEAD as there; ``/fleet`` answers 404 until wired.
+- ``MetricsServer``: the route table and the unknown-route 404 body are
+  the JAX package's; ``/slo`` answers 200 / 503 / 404 and HEAD as there;
+  ``/fleet`` answers 404 until wired; ``/history`` and ``/query`` answer
+  over a wired history store as the JAX package's do (the codes and
+  bodies of each package's server over the same ticks), and 404 when
+  none is wired.
 """
 import json
 import urllib.error
@@ -255,43 +256,83 @@ def _get(url, method="GET"):
         return e.code, e.read()
 
 
-#: the JAX package's routes over its history store, not ported yet
-HISTORY_ROUTES = ("/history", "/query")
-
-
 def _unknown_route_body(routes):
     paths = [p for p, _ in routes]
     return ("use " + ", ".join(paths[:-1]) + " or " + paths[-1]).encode()
 
 
 def test_routes_table_and_404_body_equal_jax():
-    assert tobs.ROUTES == tuple(r for r in jobs.ROUTES
-                                if r[0] not in HISTORY_ROUTES)
+    assert tobs.ROUTES == jobs.ROUTES
     bodies = {}
     for name, obs in PKGS:
         with obs.MetricsServer(obs.Registry(), port=0) as srv:
             bodies[name] = [_get(srv.url + p)
                             for p in ("/nope", "/slo", "/fleet")]
             bodies[name].append(_get(srv.url + "/nope", method="HEAD"))
-    # the unknown-route body lists each package's own table
-    jax_nope = bodies["jax"][0][1].replace(
-        _unknown_route_body(jobs.ROUTES), _unknown_route_body(tobs.ROUTES))
-    assert bodies["torch"][0] == (404, jax_nope)
-    assert bodies["torch"][1:] == bodies["jax"][1:]
+    assert bodies["torch"] == bodies["jax"]
     assert [c for c, _ in bodies["torch"]] == [404] * 4
     assert _unknown_route_body(tobs.ROUTES) in bodies["torch"][0][1]
 
 
-@pytest.mark.parametrize("path", ["/history", "/query?series=x"])
-def test_history_routes_are_unknown_paths(path):
-    """Until the history store is ported, ``/history`` and ``/query``
-    answer exactly as any unknown path does, to GET and to HEAD."""
-    with tobs.MetricsServer(tobs.Registry(), port=0) as srv:
-        for method in ("GET", "HEAD"):
-            assert (_get(srv.url + path, method=method)
-                    == _get(srv.url + "/nope", method=method))
-        code, body = _get(srv.url + path)
-    assert code == 404 and _unknown_route_body(tobs.ROUTES) in body
+class _Clock:
+    """A settable clock for the history store's sampler."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def _history_answers(obs, paths, wired=True):
+    """Each path's (code, body) from a server over a history store that
+    folded the same six ticks of one counter and one gauge; the store's
+    creation and tick times come from a fake clock, so the documents of
+    both packages can be compared byte for byte."""
+    reg = obs.Registry()
+    hits = reg.counter("hits_total")
+    depth = reg.gauge("queue_depth", labels={"lane": "fused"})
+    clock = _Clock()
+    store = obs.HistoryStore(reg, cadence_s=1.0, raw_capacity=4,
+                             levels=((2.0, 8),), clock=clock)
+    for i in range(6):
+        clock.t += 1.0
+        hits.inc(i + 1)
+        depth.set(float(i % 3))
+        store.sample_now()
+    out = []
+    with obs.MetricsServer(reg, port=0,
+                           history=store if wired else None) as srv:
+        for path, method in paths:
+            out.append(_get(srv.url + path, method=method))
+    store.close()
+    return out
+
+
+@pytest.mark.parametrize("path", [
+    "/history", "/query?series=hits_total",
+    "/query?series=hits_total&step=2&limit=2",
+    '/query?series=queue_depth%7Blane%3D%22fused%22%7D&since=1003'])
+def test_history_routes_answer_as_jax(path):
+    """``/history`` and ``/query`` over a wired store answer 200 with
+    the JAX package's documents, to GET and (without a body) to HEAD."""
+    paths = [(path, "GET"), (path, "HEAD")]
+    got = _history_answers(tobs, paths)
+    assert got == _history_answers(jobs, paths)
+    assert got[0][0] == 200 and json.loads(got[0][1])
+    assert got[1] == (200, b"")
+
+
+@pytest.mark.parametrize("path,wired,code", [
+    ("/query", True, 400), ("/query?series=x&since=a", True, 400),
+    ("/query?series=nope", True, 404), ("/history", False, 404),
+    ("/query?series=x", False, 404)])
+def test_history_route_errors_answer_as_jax(path, wired, code):
+    """Malformed and unknown-series queries, and the routes without a
+    wired store, give the JAX package's codes and bodies."""
+    got = _history_answers(tobs, [(path, "GET")], wired=wired)
+    assert got == _history_answers(jobs, [(path, "GET")], wired=wired)
+    assert got[0][0] == code
 
 
 def test_slo_route_ok_alarm_head_and_404():

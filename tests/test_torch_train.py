@@ -318,7 +318,7 @@ def test_train_epoch_matches_jax(setup, jax64):
     assert len(logs) == SPE and state.step == 1 + SPE
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.train_epoch(state, train_step, [], setup["tcfg"], 1,
-                          telemetry=object())
+                          mesh=object())
 
 
 def test_swa_running_average_and_swap():

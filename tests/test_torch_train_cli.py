@@ -179,11 +179,6 @@ def test_swa_stage_cli_on_a_workdir(corpus, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--input-pipeline", "pool"], "pool"),
-    (["--on-divergence", "halt"], "telemetry"),
-    (["--on-divergence", "warn"], "telemetry"),
-    (["--telemetry-sink", "auto"], "telemetry"),
-    (["--telemetry-port", "0"], "telemetry"),
-    (["--telemetry-trace", "auto"], "telemetry"),
     (["--reshard", "adjust"], "multi-card"),
     (["--partition"], "multi-card"),
     (["--partition-rules", "imhn"], "multi-card"),
