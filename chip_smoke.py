@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
 learn->AP loop, the accuracy tiers of inference, serving beyond one
-batcher (replica pool, cascade, process router), and live video streams
-with the run telemetry.
+batcher (replica pool, cascade, process router), live video streams
+with the run telemetry, and multi-card training.
 
     python3 chip_smoke.py
 
@@ -242,6 +242,30 @@ released before phase 6, so phase 6's peak memory is its own;
    2 steps with ``health_grad_norm_limit`` 1e-9: under ``halt``
    ``DivergenceError`` at the first window and ``/healthz`` 503, under
    ``warn`` both windows trained and counted divergent.
+12. multi-card training (``parallel``): (a) a one-rank process group
+   under NCCL (``initialize_distributed`` with this card, ``make_mesh(1,
+   1)``): ``make_train_step(mesh=, rules=)`` of ``canonical`` (bf16
+   autocast, batch 4 at 512x512, phase 6's drawn people) for the
+   ``replicated`` rules (DDP) and ``imhn_fsdp`` (the port's gather /
+   reduce-scatter storage; at one rank the refinement splits nothing):
+   each arm's first step from the seeded init against the plain step's
+   on the same batch (``replicated``: loss and updated state bit for
+   bit; ``imhn_fsdp`` within 1e-6, its difference printed), then 1 + 5
+   steps with the focal kernels' counters set to 0 before the 5 and read
+   after (5 + 5 a step), the median step ms (CUDA events) beside phase
+   6's and the device busy share with its kernel groups (profiler); the
+   focal kernels against their plain versions on the first step's calls.
+   (b) two gloo ranks over CUDA tensors on the one card (NCCL refuses
+   two ranks on one device), spawned: DDP ``replicated`` on float64
+   ``canonical`` at 2 rows a rank, against the plain float64 step on the
+   same 4 rows: first-step loss within rel 1e-5, reduced grad norm within
+   rel 1e-3, cross-rank BN running stats within 1e-5, the two ranks'
+   states equal, 5 + 5 focal launches a rank, each rank's focal calls
+   held to the plain versions; rank 0 saves the state.  (c) that
+   checkpoint restored in this process: ``reshard="adjust"`` gives the
+   saved state (SHA-256 equal), ``"refuse"`` raises ``TopologyChanged``
+   naming ``process_count``.  One card, so no multi-card speed is
+   claimed.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -251,7 +275,7 @@ stand beside them in ``launches_by_path``, phase 8's multi-scale grid as
 and ``swa``, phase 10's as ``pool``, ``cascade`` and
 ``router_stopped_workers`` (the killed worker generation left out),
 phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
-``telemetry``; the focal kernels' device ms a step at ``ae``'s and
+``telemetry``, phase 12(a)'s as ``multi_card``; the focal kernels' device ms a step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
 ``*_same_inputs_ms``, ``*_bound_ms`` and ``*_bound_by`` beside them; the decode kernels' times at phase 8's grid shape as
@@ -1802,7 +1826,8 @@ def accuracy_tiers(dev, smi, ctx):
 def kernel_group(name: str) -> str:
     """The group of a CUDA kernel, by its name, for the step's breakdown."""
     n = name.lower()
-    for key, group in (("focal", "focal kernels"), ("sgd", "optimizer"),
+    for key, group in (("nccl", "collectives"),
+                       ("focal", "focal kernels"), ("sgd", "optimizer"),
                        ("conv", "convolution"), ("xmma", "convolution"),
                        ("cudnn", "convolution"), ("gemm", "matmul"),
                        ("batch_norm", "batch norm"), ("welford", "batch norm"),
@@ -3690,6 +3715,576 @@ def live_streams(dev, smi, ctx, work):
     return launches
 
 
+# ------------------------------------------- 12. multi-card training
+P12_WARM, P12_STEPS = 2, 5       # steps of each (a) arm: warm-up, timed
+P12_RULES = ("replicated", "imhn_fsdp")
+# (b)'s arms, (precision, ruleset); the float64 one's checkpoint is (c)'s
+P12_ARMS = (("float64", "replicated"), ("float32", "replicated"),
+            ("float32", "imhn_fsdp"), ("bf16", "replicated"))
+P12_FLOORS = (1e-5, 1e-3, 1e-5)  # loss rel, grad norm rel, BN stats abs
+P12_ROUNDING = 5.0   # (b): the two ranks' distance from float64 / plain's
+P12_BN_TOL = 1e-5    # (a): cross-rank BN on one rank vs F.batch_norm
+
+
+def p12_batch(records, cfg, rows: int, seed: int):
+    """``rows`` drawn training rows at ``cfg``'s input (uint8 wire)."""
+    (batch,) = host_batches(cfg, records[seed * rows:], 1, rows)
+    return batch
+
+
+def busy_share(step, state, dev_batch, steps: int = 2):
+    """(device busy share, kernel ms a step, wall ms a step, the kernel
+    groups taking most device time) of ``steps`` back-to-back steps under
+    ``torch.profiler``; None for the first two when the profiler records
+    no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, *dev_batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, other = {}, {}
+    for e in prof.events():
+        # a range a module records (DDP's forward) shows on the device's
+        # track as a user annotation over its kernels: not a kernel
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            g = kernel_group(e.name)
+            t = e.time_range.elapsed_us()
+            groups[g] = groups.get(g, 0.0) + t
+            if g == "other":
+                other[e.name[:60]] = other.get(e.name[:60], 0.0) + t
+    us = sum(groups.values())
+    top = ", ".join(f"{g} {t / 1e3 / steps:.2f}" for g, t in sorted(
+        groups.items(), key=lambda kv: -kv[1])[:4])
+    if other:
+        top += "; 'other' by kernel: " + ", ".join(
+            f"{n} {t / 1e3 / steps:.2f}" for n, t in sorted(
+                other.items(), key=lambda kv: -kv[1])[:2])
+    if not us:
+        return None, None, 1e3 * wall / steps, top
+    return us / 1e6 / wall, us / 1e3 / steps, 1e3 * wall / steps, top
+
+
+def world_one_nccl(dev, smi, cfg, records, sync):
+    """12(a): ``make_train_step(mesh=make_mesh(1, 1), rules=...)`` under
+    NCCL at world 1 for each of ``P12_RULES``, held to the plain step's
+    first update, then timed, and the cross-rank BatchNorm held to the
+    one-rank path's (:func:`bn_one_rank`).  Returns the focal launches."""
+    import torch
+
+    from improved_body_parts_torch.models import build_model
+    from improved_body_parts_torch.ops import losses
+    from improved_body_parts_torch.parallel import (
+        get_ruleset,
+        make_mesh,
+        train_state_shardings,
+        sharding_summary,
+    )
+    from improved_body_parts_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        step_decay_schedule,
+    )
+    from improved_body_parts_torch.train.step import to_device
+
+    bs = cfg.train.batch_size_per_device
+    batches = [to_device(p12_batch(records, cfg, bs, i), dev)
+               for i in range(P12_WARM + P12_STEPS)]
+    mesh = make_mesh(1, 1, device="cuda")
+    check(torch.distributed.get_backend() == "nccl",
+          f"12a: the process group runs {torch.distributed.get_backend()}")
+
+    def state_of():
+        model = build_model(cfg, device=dev, seed=0, train=True)
+        opt = make_optimizer(model, cfg, step_decay_schedule(
+            cfg.train, steps_per_epoch=P12_WARM + P12_STEPS))
+        return create_train_state(model, cfg, opt)
+
+    ref = state_of()
+    plain = make_train_step(ref.model, cfg, ref.optimizer)
+    _, ref_loss = plain(ref, *batches[0])
+    ref_sd = {k: v.detach().clone() for k, v in
+              ref.model.state_dict().items()}
+    del ref, plain
+    launches = {k: 0 for k in FOCAL_KERNELS}
+    calls = []
+    for name in P12_RULES:
+        state = state_of()
+        rules = get_ruleset(name)
+        summary = sharding_summary(train_state_shardings(
+            state.model, state.optimizer, mesh, rules))
+        step = make_train_step(state.model, cfg, state.optimizer,
+                               mesh=mesh, rules=rules)
+        fused = losses.focal_l2_fused
+        if not calls:
+            losses.focal_l2_fused = first_calls(fused, 5, calls)
+        try:
+            state, loss = step(state, *batches[0])
+        finally:
+            losses.focal_l2_fused = fused
+        sd = state.model.state_dict()
+        diff = max(float((sd[k].double() - v.double()).abs().max())
+                   for k, v in ref_sd.items())
+        same = all(torch.equal(sd[k], v) for k, v in ref_sd.items())
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        check(torch.equal(loss, ref_loss) and same if name == "replicated"
+              else rel <= 1e-6 and diff <= 1e-6,
+              f"12a {name}: first step loss rel {rel:.3g}, params max abs "
+              f"diff {diff:.3g} against the plain step")
+        note = ("" if name == "replicated" else "; at one rank the "
+                "refinement splits nothing, so the sharded storage runs "
+                "in 12b")
+        print(f"[12a world 1] {name} ({summary}{note}): first step loss "
+              f"{float(loss):.6f} against the plain step's "
+              f"{float(ref_loss):.6f} (rel {rel:.3g}); updated parameters "
+              f"and BN stats {'equal bit for bit' if same else 'max abs diff ' + format(diff, '.3g')}")
+        for batch in batches[1:P12_WARM]:
+            state, loss = step(state, *batch)
+        reset_focal()
+        state, step_losses, step_ms, wall = timed_steps(
+            step, state, batches[P12_WARM:], f"12a {name}")
+        counts = focal_counts()
+        want = {k: 5 * P12_STEPS for k in FOCAL_KERNELS}
+        check(counts == want, f"12a {name}: focal launches {counts} in "
+              f"{P12_STEPS} steps, expected {want}")
+        for k in FOCAL_KERNELS:
+            launches[k] += counts[k]
+        share, kernel_ms, wall_ms, top = busy_share(step, state,
+                                                    batches[-1])
+        busy = ("not measured (the profiler recorded no kernel)"
+                if share is None else f"{share:.1%} ({kernel_ms:.2f} ms of "
+                f"kernels in {wall_ms:.2f} ms a step; by group, ms a step: "
+                f"{top})")
+        print(f"[12a world 1] {name}: {P12_STEPS} steps at batch {bs} x "
+              f"{cfg.skeleton.height}x{cfg.skeleton.width}, bf16 autocast, "
+              f"median step {step_ms:.2f} ms (CUDA events; phase 6's plain "
+              f"step {sync['step_ms']:.2f} ms), device busy {busy}; focal "
+              f"launches {counts}; one card, so no multi-card speed is "
+              f"claimed [{smi}]")
+        del state, step
+        torch.cuda.empty_cache()
+    check(len(calls) == 5, f"12a: captured {len(calls)} focal calls")
+    hold_focal(calls, torch.tensor(cfg.train.nstack_weight, device=dev)
+               * 0.25, "the world-1 step's calls at the per-rank shape",
+               tag="[12a world 1]")
+    bn_one_rank(dev, smi, batches[0])
+    return launches
+
+
+def flax_fast_bn(bn, x):
+    """Flax's train-mode BatchNorm of ``x`` with ``bn``'s affine: the
+    variance in the fast form ``mean(x²) - mean(x)²``.  For comparison
+    only (12a)."""
+    import torch
+
+    dims, shape = (0, 2, 3), (1, -1, 1, 1)
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    y = (x - mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
+    return y * bn.weight.view(shape) + bn.bias.view(shape)
+
+
+def rel_err(got, want) -> float:
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def bn_one_rank(dev, smi, batch):
+    """12(a): every ``BatchNorm`` of float32 ``canonical`` on its
+    train-mode input from one forward of ``batch``: the cross-rank path
+    over the one-rank group against ``F.batch_norm`` (the one-rank
+    path's), forward and the input's gradient of a seeded upstream
+    gradient, each relative to the reference's largest value.  Flax's
+    fast form on the same inputs is printed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from improved_body_parts_torch.models.layers import BatchNorm
+    from improved_body_parts_torch.train.step import (
+        normalize_images,
+        to_device,
+    )
+
+    state, _ = p12_state("float32", dev)
+    model = state.model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {"cross_rank": [0.0, 0.0], "fast": [0.0, 0.0]}
+
+    def hook(m, args):
+        x = args[0].detach().requires_grad_(True)
+        g = torch.randn(x.shape, device=dev, generator=gen)
+        with torch.enable_grad():
+            ref = F.batch_norm(x, None, None, m.weight, m.bias, True, 0.0,
+                               m.eps)
+            (ref_dx,) = torch.autograd.grad(ref, x, g)
+            m.group, m.update_stats = torch.distributed.group.WORLD, False
+            try:
+                for name, fn in (("cross_rank", m._cross_rank),
+                                 ("fast", lambda t: flax_fast_bn(m, t))):
+                    y = fn(x)
+                    (dx,) = torch.autograd.grad(y, x, g)
+                    w = worst[name]
+                    w[0] = max(w[0], rel_err(y, ref))
+                    w[1] = max(w[1], rel_err(dx, ref_dx))
+            finally:
+                m.group, m.update_stats = None, True
+
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    hooks = [m.register_forward_pre_hook(hook) for m in layers]
+    model.train()
+    try:
+        with torch.no_grad():
+            model(normalize_images(to_device(batch, dev)[0]))
+    finally:
+        for h in hooks:
+            h.remove()
+    (fwd, bwd), (fast_fwd, fast_bwd) = worst["cross_rank"], worst["fast"]
+    check(fwd <= P12_BN_TOL and bwd <= P12_BN_TOL,
+          f"12a: the cross-rank BatchNorm on one rank differs from "
+          f"F.batch_norm by rel {fwd:.3g} forward, {bwd:.3g} backward")
+    print(f"[12a world 1] cross-rank BatchNorm on the one-rank group "
+          f"against F.batch_norm, float32, each of the {len(layers)} "
+          f"layers on its train-mode input from canonical at batch "
+          f"{batch[0].shape[0]}: worst rel {fwd:.3g} forward, {bwd:.3g} "
+          f"input gradient (gate {P12_BN_TOL:g}); Flax's fast variance "
+          f"on the same inputs: {fast_fwd:.3g} / {fast_bwd:.3g} [{smi}]")
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def p12_rank(rank: int, coord: str, batch, ckpt_dir: str, out) -> None:
+    """12(b): one of two gloo ranks over CUDA tensors on card 0.  Runs
+    the first step of each of ``P12_ARMS`` on its 2 rows, and saves the
+    float64 arm's state (rank 0 writes).  Puts its numbers on ``out``."""
+    sys.path.insert(0, ROOT)
+    try:
+        import hashlib
+
+        import torch
+
+        from improved_body_parts_torch.ops import losses
+        from improved_body_parts_torch.parallel import (
+            get_ruleset,
+            initialize_distributed,
+            make_mesh,
+            mesh_topology,
+            shard_batch,
+            shutdown_distributed,
+        )
+        from improved_body_parts_torch.train import CheckpointManager
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        initialize_distributed(coord, 2, rank, device=dev, backend="gloo")
+        mesh = make_mesh(2, 1, device="cuda")
+        res = {}
+        for kind, rules in P12_ARMS:
+            state, step = p12_state(kind, dev, mesh, get_ruleset(rules))
+            full = {n: tuple(p.shape)
+                    for n, p in state.model.named_parameters()}
+            calls, fused = [], losses.focal_l2_fused
+            if not res:
+                losses.focal_l2_fused = first_calls(fused, 5, calls)
+            reset_focal()
+            try:
+                state, loss, gnorm = step(state, *shard_batch(batch, mesh))
+            finally:
+                losses.focal_l2_fused = fused
+            rec = dict(loss=float(loss), gnorm=float(gnorm),
+                       launches=focal_counts())
+            if calls:
+                hold_focal(calls, torch.tensor(
+                    p12_config(kind).train.nstack_weight, device=dev) * 0.25,
+                    f"rank {rank}'s calls at the per-rank shape",
+                    tag="[12b two ranks]")
+            if state.sharding is not None:
+                # every split parameter and its momentum hold their chunk
+                names = {id(p): n for n, p in
+                         state.model.named_parameters()}
+                moms = dict(zip(map(id, state.optimizer.params),
+                                state.optimizer.momentum))
+                chunks = []
+                for sp in state.sharding.splits:
+                    want = list(full[names[id(sp.param)]])
+                    want[sp.dim] //= sp.shards
+                    chunks.append(tuple(sp.param.shape) == tuple(want)
+                                  and tuple(moms[id(sp.param)].shape)
+                                  == tuple(want))
+                rec["split"] = (len(chunks), all(chunks))
+            if kind == "float64":
+                manager = CheckpointManager(ckpt_dir, async_save=False,
+                                            topology=mesh_topology(mesh))
+                manager.save(state, 0, float(loss), float(loss))
+                manager.close()
+                torch.distributed.barrier()
+                h = hashlib.sha256()
+                for k, v in state.model.state_dict().items():
+                    h.update(k.encode())
+                    h.update(v.detach().cpu().contiguous().numpy()
+                             .tobytes())
+                rec["sha256"] = h.hexdigest()
+            # numpy, not tensors: a tensor crosses the queue as a handle
+            # to this process's shared memory, gone once the rank exits
+            if rank == 0:
+                rec["bn"] = bn_stats(state)
+            res[(kind, rules)] = rec
+            del state, step
+            torch.cuda.empty_cache()
+        out.put((rank, res))
+        shutdown_distributed()
+    except BaseException as e:
+        out.put((rank, dict(error=f"{type(e).__name__}: {e}")))
+        raise
+
+
+def p12_config(kind: str):
+    """``canonical`` in ``kind``: ``bf16`` is its own config (bf16
+    autocast); ``float32`` and ``float64`` leave autocast off, and
+    :func:`p12_state` holds the float64 one in float64 (the loss and its
+    kernels stay float32: the model's predictions are)."""
+    import dataclasses
+
+    from improved_body_parts_torch.config import get_config
+
+    cfg = get_config("canonical")
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, bf16_compute=kind == "bf16"))
+
+
+def p12_state(kind: str, dev, mesh=None, rules=None):
+    import torch
+
+    from improved_body_parts_torch.models import build_model
+    from improved_body_parts_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        step_decay_schedule,
+    )
+
+    cfg = p12_config(kind)
+    model = build_model(cfg, device=dev, seed=0, train=True)
+    if kind == "float64":
+        model = model.to(torch.float64)
+    opt = make_optimizer(model, cfg, step_decay_schedule(
+        cfg.train, steps_per_epoch=P12_WARM + P12_STEPS))
+    state = create_train_state(model, cfg, opt)
+    return state, make_train_step(model, cfg, opt, health=True, mesh=mesh,
+                                  rules=rules)
+
+
+def bn_stats(state):
+    """The BN running stats of ``state`` as float64 numpy."""
+    return {k: v.detach().double().cpu().numpy()
+            for k, v in state.model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def p12_gaps(rec, ref, exact):
+    """(loss rel, grad norm rel, BN stats max abs) of ``rec`` from
+    ``ref``, and of ``ref`` from the float64 plain step ``exact``."""
+    def gaps(a, b):
+        return (abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                abs(a["gnorm"] - b["gnorm"]) / abs(b["gnorm"]),
+                max(float(np.abs(a["bn"][k] - v).max())
+                    for k, v in b["bn"].items()))
+    return gaps(rec, ref), gaps(rec, exact), gaps(ref, exact)
+
+
+def two_ranks_one_card(dev, smi, records, work):
+    """12(b) and (c): two gloo ranks on the one card, each arm of
+    ``P12_ARMS`` against the plain step in its precision on the same 4
+    rows, then the float64 arm's checkpoint restored in this process
+    under ``adjust`` and ``refuse``."""
+    import hashlib
+    import multiprocessing as mp
+
+    import torch
+
+    from improved_body_parts_torch.parallel import make_mesh
+    from improved_body_parts_torch.parallel.mesh import free_port
+    from improved_body_parts_torch.train import (
+        TopologyChanged,
+        restore_checkpoint,
+    )
+    from improved_body_parts_torch.train.supervisor import (
+        reshard_on_topology_change,
+    )
+
+    cfg = p12_config("float64")
+    batch = p12_batch(records, cfg, 4, P12_WARM + P12_STEPS)
+    plain = {}
+    for kind in dict(P12_ARMS):
+        state, step = p12_state(kind, dev)
+        _, loss, gnorm = step(state, *batch)
+        plain[kind] = dict(loss=float(loss), gnorm=float(gnorm),
+                           bn=bn_stats(state))
+        del state, step
+        torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(work, "p12_ckpt")
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=p12_rank, args=(r, coord, batch, ckpt_dir,
+                                                out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, rec = out.get(timeout=300)
+            got[rank] = rec
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    for rank, rec in sorted(got.items()):
+        check("error" not in rec, f"12b rank {rank}: {rec.get('error')}")
+    check(all(p.exitcode == 0 for p in procs),
+          f"12b: rank exit codes {[p.exitcode for p in procs]}")
+    exact = plain["float64"]
+    failed = []  # every arm prints its numbers before the gates fail
+
+    def gate(cond, msg):
+        if not cond:
+            failed.append(msg)
+
+    for arm in P12_ARMS:
+        kind, rules = arm
+        r0, r1 = got[0][arm], got[1][arm]
+        name = f"12b {kind} {rules}"
+        gate((r0["loss"], r0["gnorm"]) == (r1["loss"], r1["gnorm"]),
+              f"{name}: the ranks' loss / grad norm differ")
+        for rank in (0, 1):
+            gate(got[rank][arm]["launches"]
+                  == {k: 5 for k in FOCAL_KERNELS},
+                  f"{name} rank {rank}: focal launches "
+                  f"{got[rank][arm]['launches']}")
+        own, far, ref_far = p12_gaps(r0, plain[kind], exact)
+        extra = ""
+        if rules != "replicated":
+            n, ok = r0["split"]
+            rep = got[0][(kind, "replicated")]
+            extra = (f"; {n} split leaves and their momentum held as "
+                     f"chunks on both ranks ({ok and r1['split'] == (n, True)}"
+                     f"), loss / grad norm {r0['loss'] - rep['loss']:.3g} / "
+                     f"{r0['gnorm'] - rep['gnorm']:.3g} from the replicated "
+                     f"arm's")
+        print(f"[12b two ranks] {kind} {rules}: loss {r0['loss']:.6f}, "
+              f"grad norm {r0['gnorm']:.6f}; against the plain {kind} "
+              f"step on the same 4 rows: loss rel {own[0]:.3g}, grad norm "
+              f"rel {own[1]:.3g}, BN stats max abs {own[2]:.3g}; from the "
+              f"float64 step: {far[0]:.3g} / {far[1]:.3g} / {far[2]:.3g} "
+              f"(the plain {kind} step: {ref_far[0]:.3g} / "
+              f"{ref_far[1]:.3g} / {ref_far[2]:.3g}){extra}; focal "
+              f"launches 5 + 5 a rank")
+        if kind == "float64":
+            # the issue's tolerances, in float64
+            bad = [f"{what} {v:.3g} > {tol:g}" for what, v, tol in zip(
+                ("loss rel", "grad norm rel", "BN stats"), own,
+                P12_FLOORS) if v > tol]
+            basis = "against the plain float64 step"
+        else:
+            # no further from the float64 step than P12_ROUNDING times
+            # the plain step in this precision is (the floors: the
+            # issue's tolerances): the rounding a split batch reorders
+            # passes, a wrong gradient or statistic does not
+            bad = [f"{what} {v:.3g} > {max(P12_ROUNDING * r, tol):.3g}"
+                   for what, v, r, tol in zip(
+                       ("loss rel", "grad norm rel", "BN stats"), far,
+                       ref_far, P12_FLOORS)
+                   if v > max(P12_ROUNDING * r, tol)]
+            basis = (f"from the float64 step, against {P12_ROUNDING:g} x "
+                     f"the plain {kind} step's distance from it")
+        gate(not bad, f"{name}: {', '.join(bad)} ({basis})")
+        if rules != "replicated":
+            gate(n > 0 and ok and r1["split"] == (n, True),
+                  f"{name}: split leaves {r0['split']} / {r1['split']}")
+            gate(r0["loss"] == rep["loss"]
+                  and abs(r0["gnorm"] - rep["gnorm"])
+                  <= 1e-6 * abs(rep["gnorm"]),
+                  f"{name}: loss / grad norm against the replicated arm's")
+    check(not failed, "; ".join(failed))
+    print(f"[12b two ranks] 2 gloo ranks over CUDA tensors on card 0 (NCCL "
+          f"refuses two ranks on one device), canonical at 2 rows a rank x "
+          f"{cfg.skeleton.height}x{cfg.skeleton.width}, arms "
+          f"{', '.join(' '.join(a) for a in P12_ARMS)}: ranks ran in "
+          f"{ranks_s:.1f} s (start, steps, save); one card, so no "
+          f"multi-card speed is claimed [{smi}]")
+
+    # (c) the two-rank checkpoint in one process
+    saved = got[0][("float64", "replicated")]["sha256"]
+    path = os.path.join(ckpt_dir, "epoch_0")
+    mesh = make_mesh(1, 1, device="cuda")
+    state, _ = p12_state("float64", dev)
+    state, meta = restore_checkpoint(path, state)
+    state, change = reshard_on_topology_change(
+        state, meta, mesh, 1, "adjust", path, log_fn=lambda s: None)
+    h = hashlib.sha256()
+    for k, v in state.model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    check(change is not None and "process_count" in change
+          and h.hexdigest() == saved,
+          f"12c adjust: change {change}, restored state "
+          f"{'equals' if h.hexdigest() == saved else 'differs from'}"
+          " the saved one")
+    try:
+        reshard_on_topology_change(state, meta, mesh, 1, "refuse", path,
+                                   log_fn=lambda s: None)
+        refused = None
+    except TopologyChanged as e:
+        refused = str(e)
+    check(refused is not None and "process_count" in refused,
+          f"12c refuse: {refused!r}")
+    print(f"[12c reshard] the two-rank float64 checkpoint (stamped "
+          f"{meta['topology']}) restored in one process: adjust gives the "
+          f"saved state (SHA-256 {saved[:16]} equal), change "
+          f"{change}; refuse raises TopologyChanged naming process_count")
+
+
+def multi_card_training(dev, smi, sync, work):
+    """Phase 12: (a) world 1 under NCCL at full width; (b) two ranks on
+    the one card; (c) the reshard across topologies."""
+    import torch
+
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.parallel import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from improved_body_parts_torch.parallel.mesh import free_port
+
+    t0 = time.perf_counter()
+    records = sync["records"]
+    torch.cuda.empty_cache()
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        launches = world_one_nccl(dev, smi, get_config("canonical"),
+                                  records, sync)
+        marks = [("a", time.perf_counter())]
+        two_ranks_one_card(dev, smi, records, work)
+        marks.append(("b-c", time.perf_counter()))
+    finally:
+        shutdown_distributed()
+    print(f"[12 multi-card] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
+    return {"multi_card": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3984,6 +4579,8 @@ def main() -> int:
                                              planted, work)
         # ------------------ 11. live video streams, run telemetry
         streams = live_streams(dev, smi, trained, work)
+        # ------------------------------ 12. multi-card training
+        streams.update(multi_card_training(dev, smi, sync_train, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

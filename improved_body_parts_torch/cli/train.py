@@ -1,9 +1,11 @@
-"""Training CLI of the port (counterpart of the single-process path of
-``tools/train.py``)::
+"""Training CLI of the port (counterpart of ``tools/train.py``)::
 
     python -m improved_body_parts_torch.cli.train --config canonical \\
         --epochs 100 --train-h5 data/coco_train_dataset512.h5 --workers 4
     python -m improved_body_parts_torch.cli.train --swa --resume auto ...
+    # one process a card, rank 0 listening on host:port
+    python -m improved_body_parts_torch.cli.train --coordinator host:port \\
+        --num-processes 2 --process-id 0 ...
 
 Builds the model (any variant of ``--config``), state and step with the
 port's ``train`` package and runs ``fit`` with the async checkpoint.
@@ -35,7 +37,21 @@ Flags, with the JAX CLI's meaning:
   next window, transient failures retry with backoff, resume is
   automatic, and ``--epochs`` is the total the run converges to;
 - ``--distill-from CKPT --teacher-config NAME --distill-alpha
-  --distill-alpha-warmup`` (``train.distill``).
+  --distill-alpha-warmup`` (``train.distill``);
+- multi-card (``parallel``): ``--coordinator HOST:PORT --num-processes N
+  --process-id I`` start one rank a process (NCCL on the card, gloo on
+  the CPU); each rank trains ``batch_size_per_device`` rows of every
+  global batch (``data.dataset.resolve_host_shard``: strided, or
+  contiguous slabs when partitioned), under DDP with cross-rank
+  BatchNorm; ``--partition --partition-rules NAME --mesh-model M`` hold
+  the state as the partition rules lay it out on a ``(ranks / M, M)``
+  mesh, and the ruleset's fingerprint rides the topology stamp;
+  ``--reshard {adjust,refuse}`` is the policy for a checkpoint stamped
+  under another topology (default: refuse, adjust when supervised);
+  ``--lr-batch-ref`` scales the LR linearly by global batch /
+  reference.  Rank 0 alone writes checkpoints, ``RUN.json`` and the
+  epoch log and serves the telemetry endpoint; the event sink and trace
+  of rank I > 0 get a ``.pI`` suffix.
 
 ``--resume auto`` continues from the last committed checkpoint of
 ``--checkpoint-dir``.  Runs on ``--device cuda`` unless asked for
@@ -44,9 +60,9 @@ the kernels' launches, the steps and images trained, the median step
 time, train imgs/s, each save's blocked and writer ms, and a SHA-256 of
 the final model ``state_dict``.
 
-Not ported (ROADMAP.md, Queue 1), and refused with an error: the retired
-``--input-pipeline pool``, ``--reshard``, ``--partition``,
-``--partition-rules``, ``--mesh-model`` and the multi-host flags.
+Refused with an error: the retired ``--input-pipeline pool``, and
+``--distill-from`` with more than one process (the distillation step runs
+on one card).
 """
 from __future__ import annotations
 
@@ -59,17 +75,7 @@ import sys
 import time
 
 import torch
-
-# flags of the JAX CLI that the port refuses: flag -> what it needs
-UNPORTED = {
-    "--reshard": "multi-card training (ROADMAP.md, queue 1 item 9)",
-    "--partition": "multi-card training (ROADMAP.md, queue 1 item 9)",
-    "--partition-rules": "multi-card training (ROADMAP.md, queue 1 item 9)",
-    "--mesh-model": "multi-card training (ROADMAP.md, queue 1 item 9)",
-    "--coordinator": "multi-host training (ROADMAP.md, queue 1 item 9)",
-    "--num-processes": "multi-host training (ROADMAP.md, queue 1 item 9)",
-    "--process-id": "multi-host training (ROADMAP.md, queue 1 item 9)",
-}
+import torch.distributed
 
 
 def state_digest(tensors) -> str:
@@ -212,9 +218,34 @@ def _parser():
                     help="seed of the parameter init and the data pipeline")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
-    for flag, needs in UNPORTED.items():
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help=f"not ported: needs {needs}")
+    ap.add_argument("--reshard", default=None, choices=("adjust", "refuse"),
+                    help="a checkpoint stamped under another device "
+                         "topology: 'adjust' re-places the state onto the "
+                         "current mesh (global batch and world-size LR "
+                         "follow the new count), 'refuse' errors out "
+                         "(default: refuse, adjust under --supervised)")
+    ap.add_argument("--partition", action="store_true",
+                    help="hold the state as the partition ruleset lays it "
+                         "out (wide conv kernels split over the mesh), "
+                         "batch over 'data', contiguous-slab input shard; "
+                         "the ruleset's fingerprint is stamped into every "
+                         "checkpoint")
+    ap.add_argument("--partition-rules", default=None,
+                    help="named ruleset (default: the config's "
+                         "partition_rules; 'replicated' replicates every "
+                         "leaf)")
+    ap.add_argument("--mesh-model", type=int, default=None,
+                    help="'model' mesh-axis size (default: the config's "
+                         "mesh_model_axis; data axis = ranks / model)")
+    ap.add_argument("--lr-batch-ref", type=int, default=None,
+                    help="global batch the base LR was tuned at: scale the "
+                         "LR linearly by global batch / ref with a gradual "
+                         "warmup (default: the config's lr_batch_ref; 0 "
+                         "keeps the per-device world-size rule)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0 (multi-process training)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
     return ap
 
 
@@ -228,9 +259,13 @@ def resolve_args(args):
     ``(cfg, teacher_cfg)``."""
     from ..config import get_config
 
-    for flag in UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            _refuse(f"{flag} is not ported: it needs {UNPORTED[flag]}")
+    if args.num_processes < 1 or not (
+            0 <= args.process_id < args.num_processes):
+        _refuse(f"--process-id {args.process_id} is out of range for "
+                f"--num-processes {args.num_processes}")
+    if (args.num_processes > 1) != (args.coordinator is not None):
+        _refuse("--coordinator and --num-processes > 1 start a "
+                "multi-process run together: pass both or neither")
     if args.input_pipeline == "pool":
         _refuse("--input-pipeline pool (the retired spawn pool) is not "
                 "ported; use shm or sync (ROADMAP.md, queue 1)")
@@ -253,6 +288,10 @@ def resolve_args(args):
         if args.device_gt:
             _refuse("--distill-from needs host GT label maps (the blend's "
                     "supervised term); drop --device-gt")
+        if args.partition or args.num_processes > 1:
+            _refuse("--distill-from runs the single-card step (the "
+                    "student is small: that is the point); drop "
+                    "--partition and run one process")
         teacher_cfg = get_config(args.teacher_config)
         if teacher_cfg.skeleton != cfg.skeleton:
             _refuse(f"teacher config '{args.teacher_config}' has a "
@@ -277,11 +316,33 @@ def resolve_args(args):
                         ("milestone_every", "milestone_every"),
                         ("distill_alpha", "distill_alpha"),
                         ("distill_alpha_warmup",
-                         "distill_alpha_warmup_steps")):
+                         "distill_alpha_warmup_steps"),
+                        ("partition_rules", "partition_rules"),
+                        ("mesh_model", "mesh_model_axis"),
+                        ("lr_batch_ref", "lr_batch_ref")):
         if getattr(args, flag) is not None:
             overrides[field] = getattr(args, flag)
-    return (cfg.replace(train=dataclasses.replace(cfg.train, **overrides)),
-            teacher_cfg)
+    if args.partition:
+        overrides["partition"] = True
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **overrides))
+    tr = cfg.train
+    if not tr.partition and (args.mesh_model is not None
+                             or args.partition_rules):
+        _refuse("--mesh-model/--partition-rules require --partition (or a "
+                "config with partition=True)")
+    if tr.partition:
+        from ..parallel.partition import NAMED_RULESETS
+
+        if args.swa:
+            _refuse("--partition covers the main fit only; run the SWA "
+                    "stage without it")
+        if tr.partition_rules not in NAMED_RULESETS:
+            _refuse(f"--partition-rules {tr.partition_rules!r}: unknown; "
+                    f"available: {sorted(NAMED_RULESETS)}")
+        if args.num_processes % tr.mesh_model_axis:
+            _refuse(f"--mesh-model {tr.mesh_model_axis} does not divide "
+                    f"--num-processes {args.num_processes}")
+    return cfg, teacher_cfg
 
 
 def load_teacher(teacher_cfg, path: str, device):
@@ -307,11 +368,13 @@ def make_telemetry(args, cfg, device, supervisor=None):
     defaults to the config's knob), or None when no sink, trace or
     endpoint is asked for and the divergence policy is ``warn``: a
     non-warn policy needs the sentinel running even then, or ``--on-
-    divergence halt`` would be accepted and not enforced.  Returns
-    ``(telemetry, sink_path, trace_path)``."""
+    divergence halt`` would be accepted and not enforced.  Rank I > 0
+    writes its own ``.pI`` sink and trace and serves no endpoint.
+    Returns ``(telemetry, sink_path, trace_path)``."""
     from ..obs import RunTelemetry, resolve_sink_path
 
     tr = cfg.train
+    rank = args.process_id
     sink_cfg = (args.telemetry_sink if args.telemetry_sink is not None
                 else tr.telemetry_sink)
     sink_path = resolve_sink_path(sink_cfg, tr.checkpoint_dir)
@@ -321,10 +384,18 @@ def make_telemetry(args, cfg, device, supervisor=None):
                                    default_name="trace.json")
     port = (args.telemetry_port if args.telemetry_port is not None
             else tr.telemetry_port)
+    # decided from argv and config alone, the same on every rank: the
+    # bundle makes the step return its gradient norm
     if not (sink_path or trace_path or port >= 0
             or tr.on_divergence != "warn"):
         return None, sink_path, trace_path
-    meta = {"tool": "train", "config": args.config, "seed": args.seed}
+    if rank > 0:
+        # one stream and one timeline a rank; the endpoint is rank 0's
+        sink_path = sink_path and f"{sink_path}.p{rank}"
+        trace_path = trace_path and f"{trace_path}.p{rank}"
+        port = -1
+    meta = {"tool": "train", "config": args.config, "seed": args.seed,
+            "process_id": rank}
     if supervisor is not None:
         meta.update(run_id=supervisor.run_id, segment=supervisor.segment)
     telemetry = RunTelemetry(
@@ -343,56 +414,90 @@ def main(argv=None):
 
     from .. import resolve_device
     from ..obs.events import strict_dump
+    from ..parallel import initialize_distributed, shutdown_distributed
+    from ..parallel.mesh import process_index, rank_device
     from ..train import RunSupervisor
 
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device), args.process_id)
+    had_group = torch.distributed.is_initialized()
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id, device=device)
     tr = cfg.train
+    is_lead = process_index() == 0
     supervisor = None
     argv_list = list(sys.argv[1:] if argv is None else argv)
-    if args.supervised:
-        supervisor = RunSupervisor(
-            tr.checkpoint_dir, max_restarts=args.max_restarts,
-            crash_budget=args.crash_budget,
-            backoff_base_s=args.backoff_base,
-            backoff_max_s=args.backoff_max)
-        supervisor.open_segment({"argv": argv_list})
-        supervisor.install_signal_handlers()
-    telemetry, sink_path, trace_path = make_telemetry(args, cfg, device,
-                                                      supervisor)
-    if supervisor is not None:
-        # /healthz reports running/draining/backing-off next to the
-        # sentinel state, and the segment_start record enters the stream
-        supervisor.bind(telemetry)
-    manifest = {"tool": "train", "config": args.config, "argv": argv_list,
-                "telemetry_events": sink_path,
-                "telemetry_trace": trace_path,
-                "on_divergence": tr.on_divergence,
-                "telemetry_port": (telemetry.server.port
-                                   if telemetry is not None
-                                   and telemetry.server is not None
-                                   else None)}
-    if supervisor is not None:
-        supervisor.update_manifest(manifest)
-    else:
-        os.makedirs(tr.checkpoint_dir, exist_ok=True)
-        with open(os.path.join(tr.checkpoint_dir, "RUN.json"), "w") as f:
-            strict_dump(manifest, f, indent=2)
-
     try:
-        _run(args, cfg, teacher_cfg, device, supervisor, telemetry)
+        if args.supervised:
+            supervisor = RunSupervisor(
+                tr.checkpoint_dir, max_restarts=args.max_restarts,
+                crash_budget=args.crash_budget,
+                backoff_base_s=args.backoff_base,
+                backoff_max_s=args.backoff_max,
+                reshard=args.reshard or "adjust",
+                rules=_partition_rules(cfg))
+            supervisor.open_segment({"argv": argv_list})
+            supervisor.install_signal_handlers()
+        telemetry, sink_path, trace_path = make_telemetry(
+            args, cfg, device, supervisor)
+        if supervisor is not None:
+            # /healthz reports running/draining/backing-off next to the
+            # sentinel state, and the segment_start record enters the
+            # stream
+            supervisor.bind(telemetry)
+        manifest = {"tool": "train", "config": args.config,
+                    "argv": argv_list, "telemetry_events": sink_path,
+                    "telemetry_trace": trace_path,
+                    "on_divergence": tr.on_divergence,
+                    "telemetry_port": (telemetry.server.port
+                                       if telemetry is not None
+                                       and telemetry.server is not None
+                                       else None)}
+        if supervisor is not None:
+            supervisor.update_manifest(manifest)
+        elif is_lead:
+            os.makedirs(tr.checkpoint_dir, exist_ok=True)
+            with open(os.path.join(tr.checkpoint_dir, "RUN.json"),
+                      "w") as f:
+                strict_dump(manifest, f, indent=2)
+
+        try:
+            _run(args, cfg, teacher_cfg, device, supervisor, telemetry)
+        finally:
+            # a crash, and a sentinel halt above all, must still close
+            # the bundle: it saves the span trace and restores the
+            # defaults
+            if telemetry is not None:
+                telemetry.close()
     finally:
-        # a crash, and a sentinel halt above all, must still close the
-        # bundle: it saves the span trace and restores the defaults
-        if telemetry is not None:
-            telemetry.close()
+        # the group this run started (the ranks' own, or the one-rank
+        # group a partitioned run on one card brings up)
+        if not had_group:
+            shutdown_distributed()
+
+
+def _partition_rules(cfg):
+    """The run's partition ruleset, or None for the replicated regime."""
+    if not cfg.train.partition:
+        return None
+    from ..parallel.partition import get_ruleset
+
+    return get_ruleset(cfg.train.partition_rules)
 
 
 def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
-    """The CLI's datasets and :func:`train`, then its ``CLI_REPORT``."""
+    """The CLI's mesh, datasets and :func:`train`, then its
+    ``CLI_REPORT``."""
     from ..data import CocoPoseDataset
+    from ..parallel import make_mesh
+    from ..train import TopologyChanged
+    from ..train.checkpoint import _named_state
     from . import exit_report
 
     tr = cfg.train
+    mesh = None
+    if args.num_processes > 1 or tr.partition:
+        mesh = make_mesh(model=tr.mesh_model_axis if tr.partition else 1,
+                         device=device)
     teacher = None
     if args.distill_from:
         teacher = load_teacher(teacher_cfg, args.distill_from, device)
@@ -401,6 +506,12 @@ def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
               f"{tr.distill_alpha_warmup_steps} steps)")
     train_h5 = args.train_h5 or tr.hdf5_train_data
     val_h5 = args.val_h5 or tr.hdf5_val_data
+    if args.num_processes > 1 and val_h5 and not os.path.exists(val_h5):
+        # eval is collective: a rank that skipped it would leave the
+        # others waiting in its loss reduction
+        raise SystemExit(f"--val-h5 {val_h5} missing on this host; every "
+                         "rank needs it in a multi-process run (or drop "
+                         "--val-h5)")
     ds = CocoPoseDataset(train_h5, cfg, augment=True, seed=args.seed)
     val_ds = (CocoPoseDataset(val_h5, cfg, augment=False)
               if os.path.exists(val_h5) else None)
@@ -414,15 +525,23 @@ def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
             wire=args.wire or tr.input_wire, device_gt=args.device_gt,
             swa=args.swa, swa_freq=args.swa_freq,
             swa_lr_max=args.swa_lr_max, swa_lr_min=args.swa_lr_min,
-            supervisor=supervisor, teacher=teacher, telemetry=telemetry)
+            supervisor=supervisor, teacher=teacher, telemetry=telemetry,
+            mesh=mesh, partition_rules=_partition_rules(cfg),
+            reshard=args.reshard or "refuse")
+    except TopologyChanged as e:
+        raise SystemExit(str(e)) from None
     finally:
         if supervisor is not None:
             supervisor.uninstall_signal_handlers()
         ds.close()
         if val_ds is not None:
             val_ds.close()
-    exit_report("train", device, config=args.config, **report,
-                state_sha256=state_digest(state.model.state_dict()))
+    model_sd = {k[len("model/"):]: v for k, v in _named_state(state).items()
+                if k.startswith("model/")}
+    exit_report("train", device, config=args.config,
+                process_id=args.process_id,
+                num_processes=args.num_processes, **report,
+                state_sha256=state_digest(model_sd))
 
 
 def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
@@ -431,7 +550,8 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
           pipeline: str = "sync", wire=None, device_gt: int = 0,
           swa: bool = False, swa_freq: int = 5, swa_lr_max: float = 1e-5,
           swa_lr_min: float = 1e-6, supervisor=None, teacher=None,
-          telemetry=None):
+          telemetry=None, mesh=None, partition_rules=None,
+          reshard: str = "refuse"):
     """The train CLI's run, on any dataset with ``len`` and the batch
     protocol of ``data.batches`` (``CocoPoseDataset`` over HDF5,
     ``MemoryDataset``): the model of ``cfg`` built from ``seed`` on
@@ -452,13 +572,35 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
     rings' internals and has the step return its gradient norm for the
     health sentinel.
 
+    ``mesh`` (``parallel.make_mesh``; every rank of it calls ``train``
+    with the same arguments) trains each rank on its host shard of the
+    epoch's global batches of ``batch_size_per_device * data`` rows, with
+    the LR's world size the ``'data'`` extent; ``partition_rules`` (a
+    ruleset, None for the replicated regime) lays the state out and rides
+    the topology stamp with its fingerprint; ``reshard`` is the policy
+    for a ``resume`` stamped under another topology.  Rank 0 writes the
+    checkpoints and the log.
+
     Returns ``(state, report)``: the report holds the steps and images
     trained, the median step ms, train imgs/s over the epochs' batch
     loops, the host's data wait ms a step, and each save's blocked and
     writer ms."""
     from ..data import ShmRingInput, batches
     from ..models import build_model
-    from ..parallel import device_prefetch
+    from ..parallel import (
+        barrier,
+        device_prefetch,
+        mesh_topology,
+        sharding_summary,
+        train_state_shardings,
+    )
+    from ..parallel.mesh import (
+        axis_index,
+        axis_sizes,
+        process_count,
+        process_index,
+    )
+    from ..parallel.partition import get_ruleset, rules_fingerprint
     from ..train import (
         CheckpointManager,
         StopRequested,
@@ -474,21 +616,38 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
         milestone_eval,
         restore_checkpoint,
         start_swa,
-        step_decay_schedule,
         swap_swa_params,
         train_epoch,
         update_swa,
     )
     from ..train.loop import _log_line
-    from ..train.schedule import large_batch_schedule
     from ..train.supervisor import reshard_on_topology_change
 
     tr = cfg.train
     wire = wire or tr.input_wire
-    global_batch = tr.batch_size_per_device
+    data_index, data_ranks, model_ranks = 0, 1, 1
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        data_index = axis_index(mesh, "data")
+        data_ranks, model_ranks = sizes["data"], sizes["model"]
+    is_lead = process_index() == 0
+    rank_batch = tr.batch_size_per_device
+    global_batch = rank_batch * data_ranks
     steps_per_epoch = max(len(dataset) // global_batch, 1)
-    log_fn(f"device={device} global_batch={global_batch} "
-           f"steps/epoch={steps_per_epoch}")
+    # the partitioned path takes contiguous slabs of each global batch
+    # (the single-host batch, row for row); the replicated one the
+    # strided shard
+    shard = "batch" if partition_rules is not None else "strided"
+    step_rules = partition_rules
+    if mesh is not None and step_rules is None:
+        step_rules = get_ruleset("replicated")
+    rules_hash = (rules_fingerprint(partition_rules)
+                  if partition_rules is not None else None)
+    log_fn(f"device={device} mesh=data:{data_ranks},model:{model_ranks} "
+           f"global_batch={global_batch} rank_batch={rank_batch} "
+           f"steps/epoch={steps_per_epoch}"
+           + (f" partition_rules={tr.partition_rules}#{rules_hash}"
+              if partition_rules is not None else ""))
 
     def swa_schedule(start_step=0):
         return cyclic_swa_schedule(steps_per_epoch, swa_freq,
@@ -497,22 +656,21 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
 
     def build():
         model = build_model(cfg, device=device, seed=seed, train=True)
-        if swa:
-            schedule = swa_schedule()
-        elif tr.lr_batch_ref > 0:
-            schedule = large_batch_schedule(tr, steps_per_epoch,
-                                            global_batch,
-                                            use_warmup=use_warmup)
-        else:
-            schedule = step_decay_schedule(tr, steps_per_epoch,
-                                           use_warmup=use_warmup)
+        schedule = (swa_schedule() if swa else
+                    lr_schedule(tr, steps_per_epoch, rank_batch, data_ranks,
+                                use_warmup=use_warmup))
         optimizer = make_optimizer(model, cfg, schedule)
         return create_train_state(model, cfg, optimizer)
 
     state = build()
+    if partition_rules is not None:
+        log_fn("partitioned state: " + str(sharding_summary(
+            train_state_shardings(state.model, state.optimizer, mesh,
+                                  partition_rules))))
     start_epoch, best_loss, resumed_from, meta = 0, float("inf"), None, None
     if supervisor is not None:
-        resumed = supervisor.resume(state)
+        resumed = supervisor.resume(state, mesh, process_count(),
+                                    device=device)
         if resumed is not None:
             state, meta = resumed
     elif resume:
@@ -520,7 +678,9 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                 if resume == "auto" else resume)
         if path:
             state, meta = restore_checkpoint(path, state)
-            reshard_on_topology_change(meta, path)
+            state, _ = reshard_on_topology_change(
+                state, meta, mesh, process_count(), reshard, path,
+                log_fn=log_fn, rules=partition_rules, device=device)
             log_fn(f"resumed from {path} (epoch {meta['epoch']})")
     if meta is not None:
         start_epoch = meta["epoch"] + 1
@@ -550,21 +710,22 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                 health=health), teacher)
         return make_train_step(model, cfg, opt, use_focal=use_focal,
                                freeze_bn=swa, device_gt=device_gt > 0,
-                               health=health)
+                               health=health, mesh=mesh, rules=step_rules)
 
     clock = StepClock(make_step(state), device)
-    eval_step = make_eval_step(state.model, cfg, use_focal=use_focal)
+    eval_step = make_eval_step(state.model, cfg, use_focal=use_focal,
+                               mesh=mesh)
     train_s, wait_s = [0.0], [0.0]
     rings = []
     if pipeline == "shm" and workers > 0:
-        train_ring = ShmRingInput(dataset, global_batch, workers,
+        train_ring = ShmRingInput(dataset, rank_batch, workers,
                                   raw_gt=device_gt, wire=wire,
                                   slots=tr.input_ring_slots,
                                   supervise=supervisor is not None)
         rings.append(train_ring)
     eval_ring = None
     if rings and val_dataset is not None:
-        eval_ring = ShmRingInput(val_dataset, global_batch, workers,
+        eval_ring = ShmRingInput(val_dataset, rank_batch, workers,
                                  wire=wire, slots=tr.input_ring_slots,
                                  supervise=supervisor is not None)
         rings.append(eval_ring)
@@ -573,13 +734,15 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
         if eval_ring is not None:
             eval_ring.attach_telemetry(telemetry.registry,
                                        prefix="eval_input_ring")
+    host = dict(process_index=data_index, process_count=data_ranks)
 
     def make_train_batches(epoch):
         if rings:
-            it = device_prefetch(rings[0].batches(epoch), device, depth=2)
+            it = device_prefetch(rings[0].batches(epoch, shard=shard,
+                                                  **host), device, depth=2)
         else:
-            it = batches(dataset, global_batch, epoch, pipeline="sync",
-                         wire=wire, raw_gt=device_gt)
+            it = batches(dataset, rank_batch, epoch, pipeline="sync",
+                         wire=wire, raw_gt=device_gt, shard=shard, **host)
         t0 = time.perf_counter()
         while True:
             t = time.perf_counter()
@@ -594,21 +757,29 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
     if val_dataset is not None:
         def make_eval_batches(epoch):
             if eval_ring is not None:
-                return device_prefetch(eval_ring.batches(0), device,
-                                       depth=2)
-            return batches(val_dataset, global_batch, 0, pipeline="sync",
-                           wire=wire)
+                return device_prefetch(eval_ring.batches(0, shard=shard,
+                                                         **host),
+                                       device, depth=2)
+            return batches(val_dataset, rank_batch, 0, pipeline="sync",
+                           wire=wire, shard=shard, **host)
 
     manager = CheckpointManager.from_config(
         tr.checkpoint_dir, tr,
-        registry=telemetry.registry if telemetry is not None else None)
+        registry=telemetry.registry if telemetry is not None else None,
+        topology=mesh_topology(mesh, partition_rules=rules_hash,
+                               device=device))
 
     def milestone(epoch):
         if make_eval_batches is not None:
-            loss = milestone_eval(state, eval_step, make_eval_batches(epoch))
-            log_fn(f"resume milestone eval (after epoch {epoch}): loss "
-                   f"{loss:.6f}")
+            loss = milestone_eval(state, eval_step, make_eval_batches(epoch),
+                                  mesh=mesh)
+            if is_lead:
+                log_fn(f"resume milestone eval (after epoch {epoch}): loss "
+                       f"{loss:.6f}")
 
+    # ranks drift apart over their own set-up (corpus, model, resume);
+    # meet before the first step's collectives
+    barrier()
     try:
         if swa:
             if resumed_swa:
@@ -619,9 +790,10 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
             for epoch in range(start_epoch, start_epoch + epochs):
                 state, train_loss = train_epoch(
                     state, clock, make_train_batches(epoch), cfg, epoch,
-                    log_fn=log_fn, telemetry=telemetry)
-                _log_line(tr.checkpoint_dir,
-                          f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
+                    mesh=mesh, log_fn=log_fn, telemetry=telemetry)
+                if is_lead:
+                    _log_line(tr.checkpoint_dir,
+                              f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
                 if (epoch - start_epoch + 1) % swa_freq == 0:
                     _save_swapped(manager, update_swa(state), epoch,
                                   train_loss)
@@ -635,10 +807,10 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
             manager.wait()
         elif supervisor is None:
             fit(state, clock, cfg, make_train_batches, epochs,
-                start_epoch=start_epoch, eval_step=eval_step,
-                make_eval_batches=make_eval_batches, best_loss=best_loss,
-                checkpoint_manager=manager, log_fn=log_fn,
-                telemetry=telemetry)
+                start_epoch=start_epoch, mesh=mesh, eval_step=eval_step,
+                make_eval_batches=make_eval_batches,
+                best_loss=best_loss, checkpoint_manager=manager,
+                log_fn=log_fn, telemetry=telemetry)
         else:
             if resumed_from is not None:
                 milestone(resumed_from)
@@ -651,10 +823,12 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                     break
                 try:
                     fit(state, clock, cfg, make_train_batches, to_run,
-                        start_epoch=start_epoch, eval_step=eval_step,
+                        start_epoch=start_epoch, mesh=mesh,
+                        eval_step=eval_step,
                         make_eval_batches=make_eval_batches,
-                        best_loss=best_loss, checkpoint_manager=manager,
-                        log_fn=log_fn, telemetry=telemetry,
+                        best_loss=best_loss,
+                        checkpoint_manager=manager, log_fn=log_fn,
+                        telemetry=telemetry,
                         should_stop=supervisor.should_stop)
                 except StopRequested as e:
                     supervisor.close_segment("preempted", str(e))
@@ -663,12 +837,15 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                 except Exception as e:
                     if supervisor.on_failure(e) != "retry":
                         raise
-                    resumed = supervisor.resume(state)
+                    resumed = supervisor.resume(state, mesh,
+                                                process_count(),
+                                                device=device)
                     if resumed is None:
                         state = build()
                         clock.step = make_step(state)
                         eval_step = make_eval_step(state.model, cfg,
-                                                   use_focal=use_focal)
+                                                   use_focal=use_focal,
+                                                   mesh=mesh)
                         start_epoch, best_loss = 0, float("inf")
                     else:
                         state, meta = resumed
@@ -691,6 +868,23 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
         data_wait_ms_per_step=1e3 * wait_s[0] / max(len(clock.marks), 1),
         save_blocked_ms=[1e3 * s for s in manager.blocked_seconds],
         save_write_ms=[1e3 * s for s in manager.write_seconds])
+
+
+def lr_schedule(train_cfg, steps_per_epoch: int, rank_batch: int,
+                data_ranks: int, use_warmup: bool = True):
+    """The main fit's LR schedule, as the JAX CLI picks it: with
+    ``lr_batch_ref > 0`` the large-batch recipe, linear in the global
+    batch (``rank_batch * data_ranks``) over the reference; otherwise the
+    step decay times the world size, the ranks that carry rows
+    (train_distributed.py:388; ``'model'`` ranks split tensors)."""
+    from ..train.schedule import large_batch_schedule, step_decay_schedule
+
+    if train_cfg.lr_batch_ref > 0:
+        return large_batch_schedule(train_cfg, steps_per_epoch,
+                                    rank_batch * data_ranks,
+                                    use_warmup=use_warmup)
+    return step_decay_schedule(train_cfg, steps_per_epoch,
+                               world_size=data_ranks, use_warmup=use_warmup)
 
 
 def _save_swapped(manager, state, epoch: int, train_loss: float) -> None:

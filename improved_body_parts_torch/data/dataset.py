@@ -194,11 +194,44 @@ def host_shard(indices: np.ndarray, process_index: int, process_count: int,
     return shard[: n_batches * batch_size]
 
 
+def host_batch_shard(indices: np.ndarray, process_index: int,
+                     process_count: int, batch_size: int) -> np.ndarray:
+    """This host's contiguous slab of every global batch (the partitioned
+    path's input shard): global batch ``k`` is ``indices[k*G:(k+1)*G]``
+    with ``G = batch_size * process_count``, the batch a single host of
+    the same permutation forms, and host ``p`` takes its rows ``[p *
+    batch_size, (p + 1) * batch_size)``.  The hosts' slabs in order
+    reassemble each global batch, row order included.  Truncated to full
+    global batches."""
+    global_batch = batch_size * process_count
+    n_batches = len(indices) // global_batch
+    rows = [indices[k * global_batch + process_index * batch_size:
+                    k * global_batch + (process_index + 1) * batch_size]
+            for k in range(n_batches)]
+    if not rows:
+        return indices[:0]
+    return np.concatenate(rows)
+
+
+def resolve_host_shard(indices: np.ndarray, process_index: int,
+                       process_count: int, batch_size: int,
+                       shard: str = "strided") -> np.ndarray:
+    """The host shard of ``shard`` mode: ``"strided"`` (:func:`host_shard`,
+    the replicated regime's) or ``"batch"`` (:func:`host_batch_shard`,
+    the partitioned path's).  One dispatch for the in-process path and
+    the shm ring, so the two cannot disagree on a host's rows."""
+    if shard not in ("strided", "batch"):
+        raise ValueError(f"unknown host shard mode {shard!r}; "
+                         "use 'strided' or 'batch'")
+    fn = host_batch_shard if shard == "batch" else host_shard
+    return fn(indices, process_index, process_count, batch_size)
+
+
 def batches(dataset: CocoPoseDataset, batch_size: int, epoch: int,
             process_index: int = 0, process_count: int = 1,
             pipeline: Optional[str] = None, wire: str = "f32",
-            raw_gt: int = 0, num_workers: int = 0, ring_slots: int = 0
-            ) -> Iterator[Tuple[np.ndarray, ...]]:
+            raw_gt: int = 0, num_workers: int = 0, ring_slots: int = 0,
+            shard: str = "strided") -> Iterator[Tuple[np.ndarray, ...]]:
     """Yield batched (images, mask_miss, labels) host arrays for one epoch;
     with ``raw_gt > 0``, (images, mask_miss, joints, mask_all) for GT made
     on the device, ``raw_gt`` the ``max_people`` padding
@@ -213,7 +246,8 @@ def batches(dataset: CocoPoseDataset, batch_size: int, epoch: int,
     the yielded arrays stay valid (a loop over many epochs should hold
     one ``ShmRingInput`` and take its zero-copy ``batches(epoch)``).
     Samples are deterministic in (seed, epoch, index): both transports
-    yield the same bits."""
+    yield the same bits.  ``process_index`` of ``process_count`` hosts
+    takes its ``shard`` (:func:`resolve_host_shard`) of the epoch."""
     if pipeline is None:
         pipeline = "shm" if num_workers > 0 else "sync"
     if pipeline == "pool":
@@ -229,16 +263,18 @@ def batches(dataset: CocoPoseDataset, batch_size: int, epoch: int,
         ring = ShmRingInput(dataset, batch_size, num_workers, raw_gt=raw_gt,
                             wire=wire, slots=ring_slots)
         try:
-            for batch in ring.batches(epoch, process_index, process_count):
+            for batch in ring.batches(epoch, process_index, process_count,
+                                      shard=shard):
                 yield tuple(np.copy(x) for x in batch)
                 batch = None  # drop the view before close() unmaps
         finally:
             ring.close()
         return
     perm = epoch_permutation(len(dataset), epoch, dataset.seed)
-    shard = host_shard(perm, process_index, process_count, batch_size)
-    for start in range(0, len(shard), batch_size):
-        idxs = [int(i) for i in shard[start: start + batch_size]]
+    rows = resolve_host_shard(perm, process_index, process_count,
+                              batch_size, shard=shard)
+    for start in range(0, len(rows), batch_size):
+        idxs = [int(i) for i in rows[start: start + batch_size]]
         samples = [dataset.sample_raw(i, epoch, max_people=raw_gt, wire=wire)
                    if raw_gt > 0 else dataset.sample(i, epoch, wire=wire)
                    for i in idxs]

@@ -627,31 +627,37 @@ class ShmRingInput:
                         consecutive=self._consecutive_rebuilds)
 
     def _epoch_tasks(self, epoch: int, process_index: int,
-                     process_count: int):
+                     process_count: int, shard: str = "strided"):
         """(epoch, batch_idx, indices) task triples for one epoch — the
-        same permutation, host shard and batching as the synchronous
+        same permutation, host shard (``data.dataset.resolve_host_shard``,
+        the synchronous path's dispatch) and batching as the synchronous
         path."""
-        from .dataset import epoch_permutation, host_shard
+        from .dataset import epoch_permutation, resolve_host_shard
 
         perm = epoch_permutation(len(self.dataset), epoch, self.dataset.seed)
-        rows = host_shard(perm, process_index, process_count,
-                          self.batch_size)
+        rows = resolve_host_shard(perm, process_index, process_count,
+                                  self.batch_size, shard=shard)
         for batch_idx, s in enumerate(range(0, len(rows), self.batch_size)):
             yield epoch, batch_idx, [int(i) for i in
                                      rows[s: s + self.batch_size]]
 
     def batches(self, epoch: int, process_index: int = 0,
-                process_count: int = 1) -> Iterator[Tuple[np.ndarray, ...]]:
+                process_count: int = 1, shard: str = "strided"
+                ) -> Iterator[Tuple[np.ndarray, ...]]:
         """Yield this host's batches for ``epoch`` in deterministic order:
         the stream of ``data.batches(..., pipeline="sync")`` on the same
         wire (same epoch permutation, host shard and per-sample
-        ``(seed, epoch, index)`` draws).  A worker's failure raises with
-        its traceback; a dead worker raises :class:`WorkerDied`, or under
-        ``supervise=True`` rebuilds the ring (:meth:`_rebuild`) and the
-        stream goes on, still bit-identical.  An abandoned generator's
-        in-flight slots are reclaimed by the next generator."""
+        ``(seed, epoch, index)`` draws).  ``shard="batch"`` takes the
+        contiguous slab of every global batch
+        (``data.dataset.host_batch_shard``), whose slabs across hosts
+        reassemble the single-host batch bit for bit.  A worker's failure
+        raises with its traceback; a dead worker raises
+        :class:`WorkerDied`, or under ``supervise=True`` rebuilds the ring
+        (:meth:`_rebuild`) and the stream goes on, still bit-identical.
+        An abandoned generator's in-flight slots are reclaimed by the next
+        generator."""
         return self._run(self._epoch_tasks(epoch, process_index,
-                                           process_count))
+                                           process_count, shard))
 
     def _run(self, task_iter) -> Iterator[Tuple[np.ndarray, ...]]:
         """Drive the ring over ``task_iter`` of (epoch, batch_idx,

@@ -63,10 +63,16 @@ class BatchNorm(nn.BatchNorm2d):
         # False while a rematerialised forward recomputes this layer
         # (:class:`frozen_bn_stats`): the stats were updated once already
         self.update_stats = True
+        # the process group of the ranks that split the batch (set by
+        # the train step when there is more than one): train mode then
+        # normalises with the statistics of the global batch
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._cross_rank(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         if not self.update_stats:
@@ -79,9 +85,57 @@ class BatchNorm(nn.BatchNorm2d):
             mean2 = torch.linalg.vector_norm(x, dim=dims,
                                              dtype=dt).square() / n
             var = torch.clamp(mean2 - mean * mean, min=0.0)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
+            self._update_running(mean, var)
         return y
+
+    def _update_running(self, mean, var):
+        self.running_mean.mul_(0.9).add_(0.1 * mean)
+        self.running_var.mul_(0.9).add_(0.1 * var)
+
+    def _cross_rank(self, x):
+        """Train mode over the global batch, normalised as the one-rank
+        path's ``F.batch_norm`` does: the per-channel mean from Σx and
+        the count summed over ``self.group``, then the variance from the
+        centred Σ(x - mean)² summed again (two passes, so float32 loses
+        nothing to the cancellation in ``mean(x²) - mean(x)²``).  Both
+        sums go through the differentiable ``all_reduce``, whose backward
+        sums the gradient over the same ranks: the gradient a rank's
+        loss sends back through the sums reaches every rank's rows, so
+        the data ranks' gradients summed are the single-process step's.
+        The running stats take Flax's ``mean(x²) - mean(x)²``, as the
+        one-rank path's do, from a Σx² summed with the mean.  Reduced in
+        float32 (float64 for a float64 input)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dt)
+        dims = (0, 2, 3)
+        shape = (1, c, 1, 1)
+        count = torch.full((1,), x.numel() // c, dtype=dt, device=x.device)
+        with torch.no_grad():
+            sq = (xf * xf).sum(dims)
+        sums = all_reduce(torch.cat([xf.sum(dims), count, sq]),
+                          group=self.group)
+        n = sums[c]
+        mean = sums[:c] / n
+        xc = xf - mean.view(shape)
+        var = all_reduce((xc * xc).sum(dims), group=self.group) / n
+        if self.update_stats:
+            with torch.no_grad():
+                fast = torch.clamp(sums[c + 1:] / n - mean * mean, min=0.0)
+                self._update_running(mean.detach(), fast)
+        y = xc * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.to(dt).view(shape) + self.bias.to(dt).view(shape)
+        return y.to(x.dtype)
+
+
+def set_batch_norm_group(module: nn.Module, group) -> None:
+    """Every :class:`BatchNorm` of ``module`` normalises over the ranks
+    of ``group`` in train mode (None: over this rank's rows only)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class frozen_bn_stats:

@@ -41,12 +41,20 @@ def device_prefetch(batches: Iterable, device, depth: int = 2,
     wall clock: time blocked here waiting on the prefetch queue is DATA
     WAIT (the input pipeline fell behind), time the consumer holds the
     thread between batches is COMPUTE (device step + dispatch +
-    readback).  ``spatial_shard`` (partitioning) is not ported and
-    accepts only its default."""
+    readback).
+
+    ``device`` may be a mesh (``parallel.make_mesh``): each rank's batch
+    (its host shard of the global batch) goes to the card that rank
+    drives.  ``spatial_shard`` (a height split over ``'model'``, which
+    needs a halo exchange) is not ported and accepts only its default."""
     if spatial_shard:
         raise NotImplementedError(
             "device_prefetch: spatial_shard is not ported yet "
-            "(ROADMAP.md, queue 1: parallel training)")
+            "(ROADMAP.md, queue 1: a halo-exchanging height shard)")
+    from .mesh import is_mesh, rank_device
+
+    if is_mesh(device):
+        device = rank_device(device.device_type)
     device = torch.device(device)
     if device.type == "cuda":
         place = _CudaPlacer(device)

@@ -31,8 +31,10 @@ from .state import (
 from .step import make_eval_step, make_train_step, normalize_images
 from .supervisor import (
     RunSupervisor,
+    PartitionRulesChanged,
     StopRequested,
     SupervisorGaveUp,
+    TopologyChanged,
     chaos_kill_point,
     classify_error,
     milestone_eval,
@@ -41,9 +43,11 @@ from .supervisor import (
 
 __all__ = [
     "CheckpointManager",
+    "PartitionRulesChanged",
     "RunSupervisor",
     "StopRequested",
     "SupervisorGaveUp",
+    "TopologyChanged",
     "bind_teacher",
     "chaos_kill_point",
     "classify_error",

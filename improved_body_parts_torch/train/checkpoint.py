@@ -39,8 +39,17 @@ The manager's spans go to the port's ``obs.trace`` tracer, one
 ``checkpoint`` event a commit to its ``obs.events`` sink, and its
 registry metrics (``checkpoint_seconds{phase=blocked|snapshot|serialize|
 commit}``, ``checkpoint_bytes``, ``checkpoints_retained``) to
-``registry`` (the process default unless a run passes its own).  Not
-ported yet (ROADMAP.md, Queue 1): the device-topology stamp.
+``registry`` (the process default unless a run passes its own).
+
+Across ranks: every rank calls ``save`` (a partitioned state's split
+leaves are all-gathered to full tensors first, so the file is the
+single-process one), and only the lead host writes the payload, the
+marker and the in-flight stamp and runs retention.  Each marker carries
+the device-topology stamp (``parallel.mesh.mesh_topology``, with the
+ruleset fingerprint of a partitioned run) that
+``train.supervisor.reshard_on_topology_change`` checks on resume;
+:func:`restore_checkpoint` fills a full state, and the step (or the
+reshard) lays it out on whatever mesh is current.
 """
 from __future__ import annotations
 
@@ -66,7 +75,8 @@ PAYLOAD_FILE = "state.pt"
 def _named_state(state: TrainState) -> Dict[str, torch.Tensor]:
     """Every tensor of the payload by a flat name: ``model/<key>`` for the
     state_dict, ``momentum/<param name>`` for the trace,
-    ``optimizer/count``, and ``swa/<param name>`` for the SWA average."""
+    ``optimizer/count``, and ``swa/<param name>`` for the SWA average.
+    Split leaves of a partitioned state come back full (a collective)."""
     model = state.model
     out = {f"model/{k}": v for k, v in model.state_dict().items()}
     opt = state.optimizer
@@ -77,6 +87,8 @@ def _named_state(state: TrainState) -> Dict[str, torch.Tensor]:
         out["optimizer/count"] = opt.count
     for name, t in (state.swa_params or {}).items():
         out[f"swa/{name}"] = t
+    if state.sharding is not None:
+        out = state.sharding.full_named(out)
     return out
 
 
@@ -214,11 +226,19 @@ class TorchSaveWriter:
         torch.save(payload, os.path.join(path, PAYLOAD_FILE))
 
 
+def _default_topology(state: TrainState) -> Dict[str, Any]:
+    from ..parallel.mesh import mesh_topology
+
+    return mesh_topology(device=next(state.model.parameters()).device)
+
+
 def save_checkpoint(directory: str, state: TrainState, epoch: int,
-                    train_loss: float, best_loss: float) -> str:
+                    train_loss: float, best_loss: float,
+                    topology: Optional[Dict[str, Any]] = None) -> str:
     """Synchronous save of ``<directory>/epoch_<N>`` (snapshot, write and
     commit marker in the caller's thread); returns the path.  The async
-    path is :class:`CheckpointManager`."""
+    path is :class:`CheckpointManager`.  ``topology`` is the stamp
+    (default: this process's, ``parallel.mesh.mesh_topology``)."""
     directory = os.path.abspath(directory)
     path = os.path.join(directory, f"epoch_{epoch}")
     host = snapshot_to_host(_named_state(state))
@@ -228,9 +248,10 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
     TorchSaveWriter().save(path, _payload(host, state.step, epoch,
                                           train_loss, best_loss,
                                           _swa_fields(state)))
-    _write_marker(path, _marker_meta(epoch, train_loss, best_loss,
-                                     _payload_bytes(host),
-                                     time_unix=round(time.time(), 3)))
+    _write_marker(path, _marker_meta(
+        epoch, train_loss, best_loss, _payload_bytes(host),
+        topology=topology or _default_topology(state),
+        time_unix=round(time.time(), 3)))
     try:
         os.remove(stamp)
     except OSError:
@@ -248,11 +269,16 @@ def restore_checkpoint(path: str, state: Optional[TrainState] = None):
     A checkpoint without optimizer state keeps the state's own.  ``meta``
     prefers the commit marker's ``best_loss``/``metric``/``metric_value``:
     the marker is written (and possibly amended) after validation ran,
-    the payload's copy is the value known when the save began."""
+    the payload's copy is the value known when the save began; it also
+    carries the marker's ``topology`` stamp.  A partitioned ``state`` is
+    made full first (a collective: every rank restores together); the
+    step lays it out again."""
     payload = torch.load(os.path.join(os.path.abspath(path), PAYLOAD_FILE),
                          map_location="cpu", weights_only=True)
     if state is None:
         return payload
+    if state.sharding is not None:
+        state.sharding.unshard(state)
     model = state.model
     model.load_state_dict(payload["model"], strict=True)
     opt = payload.get("optimizer")
@@ -273,7 +299,7 @@ def restore_checkpoint(path: str, state: Optional[TrainState] = None):
     meta = {k: payload[k] for k in ("epoch", "train_loss", "best_loss")}
     marker = read_commit_meta(path)
     if marker:
-        for k in ("best_loss", "metric", "metric_value"):
+        for k in ("best_loss", "metric", "metric_value", "topology"):
             if k in marker:
                 meta[k] = marker[k]
     return state, meta
@@ -352,13 +378,21 @@ class CheckpointManager:
     committed checkpoints.
 
     ``blocked_seconds`` and ``write_seconds`` keep each save's time in the
-    caller's thread and its writer's time (``torch.save`` + commit)."""
+    caller's thread and its writer's time (``torch.save`` + commit).
+
+    On a rank other than 0 (:attr:`is_lead_host` False) ``save`` takes
+    part in the gather of a partitioned state and writes nothing.
+    ``topology``
+    is each marker's stamp (default: this process's
+    ``parallel.mesh.mesh_topology``)."""
 
     def __init__(self, directory: str, *, async_save: bool = True,
                  keep_last_n: int = 0, keep_best: bool = True,
                  milestone_every: int = 0, registry=None,
+                 topology: Optional[Dict[str, Any]] = None,
                  _commit_delay_s: float = 0.0):
         self.directory = os.path.abspath(directory)
+        self.topology = topology
         # metrics registry: the process-wide default unless a run plumbs
         # its own
         self._reg = registry
@@ -397,8 +431,9 @@ class CheckpointManager:
                                    meta.get("train_loss", 0.0))))
 
     @classmethod
-    def from_config(cls, directory: str, train_cfg,
-                    registry=None) -> "CheckpointManager":
+    def from_config(cls, directory: str, train_cfg, registry=None,
+                    topology: Optional[Dict[str, Any]] = None
+                    ) -> "CheckpointManager":
         """Build from ``TrainConfig`` knobs (``async_checkpoint``,
         ``keep_last_n``, ``keep_best``, ``milestone_every``), reporting
         to ``registry`` (a run's own, or the process default)."""
@@ -407,7 +442,14 @@ class CheckpointManager:
                    keep_last_n=getattr(train_cfg, "keep_last_n", 0),
                    keep_best=getattr(train_cfg, "keep_best", True),
                    milestone_every=getattr(train_cfg, "milestone_every", 0),
-                   registry=registry)
+                   registry=registry, topology=topology)
+
+    @property
+    def is_lead_host(self) -> bool:
+        """Rank 0 of the process group (or no group) writes."""
+        from ..parallel.mesh import process_index
+
+        return process_index() == 0
 
     # ------------------------------------------------------------- save
     def save(self, state: TrainState, epoch: int, train_loss: float,
@@ -418,6 +460,11 @@ class CheckpointManager:
         t_start = time.perf_counter()
         self.wait()  # the previous write, and its pinned buffers
         wait_s = time.perf_counter() - t_start
+        path = os.path.join(self.directory, f"epoch_{epoch}")
+        if not self.is_lead_host:
+            if state.sharding is not None:
+                _named_state(state)  # the lead host's gather
+            return path
         t0 = time.perf_counter()
         with get_tracer().span("snapshot", track="checkpoint",
                                args={"epoch": epoch}):
@@ -425,10 +472,10 @@ class CheckpointManager:
         snapshot_s = time.perf_counter() - t0
         payload = _payload(host, state.step, epoch, train_loss, best_loss,
                            _swa_fields(state))
-        path = os.path.join(self.directory, f"epoch_{epoch}")
-        base_meta = _marker_meta(epoch, train_loss, best_loss,
-                                 _payload_bytes(host),
-                                 **{"async": self.async_save})
+        base_meta = _marker_meta(
+            epoch, train_loss, best_loss, _payload_bytes(host),
+            topology=self.topology or _default_topology(state),
+            **{"async": self.async_save})
         timings = {"wait_s": wait_s, "snapshot_s": snapshot_s}
         with self._lock:
             # an earlier run's commit of this epoch is being replaced:
@@ -467,6 +514,8 @@ class CheckpointManager:
         meta = {"metric": str(name), "metric_value": float(value)}
         if best_loss is not None:
             meta["best_loss"] = float(best_loss)
+        if not self.is_lead_host:
+            return
         # the commit transition happens under the same lock in
         # _write_and_commit, so exactly one branch fires
         with self._lock:

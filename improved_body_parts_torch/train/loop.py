@@ -27,6 +27,7 @@ import torch
 from ..config import Config
 from ..obs.health import DivergenceError
 from ..obs.trace import get_tracer
+from ..parallel.mesh import process_index
 from ..utils import AverageMeter, StepTimer
 from . import checkpoint as ckpt
 from .state import TrainState
@@ -45,11 +46,15 @@ def _model_device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
-def _only_none(name: str, value, where: str = "train_epoch") -> None:
-    if value is not None:
-        raise NotImplementedError(
-            f"{where}: {name} is not ported yet (ROADMAP.md, queue 1: "
-            "multi-card training)")
+def _data_ranks(mesh, where: str) -> int:
+    """How many ranks split the batch under ``mesh`` (1 without one): a
+    rank's batch is that fraction of the global batch."""
+    if mesh is None:
+        return 1
+    from ..parallel.mesh import axis_sizes, check_mesh
+
+    check_mesh(mesh, where)
+    return axis_sizes(mesh)["data"]
 
 
 def _read_window(pending) -> List[tuple]:
@@ -87,7 +92,6 @@ def _window_health(vals):
 def train_epoch(state: TrainState, train_step: Callable,
                 batches: Iterable, config: Config, epoch: int,
                 mesh=None, print_freq: Optional[int] = None,
-                is_lead_host: bool = True,
                 log_fn: Callable[[str], None] = print,
                 telemetry=None,
                 should_stop: Optional[Callable[[], bool]] = None
@@ -115,9 +119,15 @@ def train_epoch(state: TrainState, train_step: Callable,
     ``halt`` policy a divergent window raises
     :class:`obs.DivergenceError`.  Any other exception out of the loop
     emits the memory forensics (largest live tensors by shape/dtype)
-    into the event stream before it propagates.  ``mesh`` accepts only
-    None here."""
-    _only_none("mesh", mesh)
+    into the event stream before it propagates.
+
+    Under ``mesh`` every rank runs the epoch on its host shard of the
+    batches with a step built for that mesh
+    (``make_train_step(mesh=, rules=)``), whose loss is the global
+    batch's; the mean and the imgs/s count the global batch (the rank's
+    rows times the ``'data'`` ranks).  Only rank 0 logs."""
+    data_ranks = _data_ranks(mesh, "train_epoch")
+    is_lead = process_index() == 0
     print_freq = print_freq or config.train.print_freq
     dev = _model_device(state)
     losses = AverageMeter()
@@ -195,7 +205,7 @@ def train_epoch(state: TrainState, train_step: Callable,
     step_idx = -1
     try:
         for step_idx, batch in enumerate(batches):
-            global_batch = batch[0].shape[0]
+            global_batch = batch[0].shape[0] * data_ranks
             out = train_step(state, *to_device(batch, dev))
             if len(out) == 3:  # health-instrumented step
                 state, loss, gnorm = out
@@ -212,7 +222,7 @@ def train_epoch(state: TrainState, train_step: Callable,
                 if telemetry is not None:
                     # may raise DivergenceError (on_divergence=halt)
                     close_window(vals, print_freq, step_idx + 1, dt)
-                if is_lead_host:
+                if is_lead:
                     log_fn(f"==> Epoch [{epoch}][{step_idx + 1}] "
                            f"loss {losses.val:.6f} ({losses.avg:.6f}) "
                            f"imgs/s {global_batch / max(dt, 1e-9):.1f}")
@@ -253,15 +263,16 @@ def eval_epoch(state: TrainState, eval_step: Callable, batches: Iterable,
                mesh=None, readback_freq: int = 32) -> float:
     """Eval pass; returns the sample-weighted mean loss.  The per-batch
     losses stay on the device and are read back every ``readback_freq``
-    batches."""
-    _only_none("mesh", mesh)
+    batches.  Under ``mesh`` every rank must call it (its step reduces
+    the loss over the ranks) with its host shard of the batches."""
+    data_ranks = _data_ranks(mesh, "eval_epoch")
     dev = _model_device(state)
     losses = AverageMeter()
     pending = []
     for batch in batches:
         chaos_kill_point("mid_eval")
         pending.append((eval_step(state, *to_device(batch, dev)),
-                        batch[0].shape[0]))
+                        batch[0].shape[0] * data_ranks))
         if len(pending) >= readback_freq:
             for loss, bs in pending:
                 losses.update(float(loss), bs)
@@ -316,16 +327,27 @@ def fit(state: TrainState, train_step: Callable, config: Config,
     :func:`train_epoch` and gets an ``epoch`` event at each boundary (the
     train loss, the val loss when eval ran, ``saved`` when the epoch
     saved); the manager fit builds reports its checkpoint metrics to
-    the bundle's registry.  ``mesh`` accepts only None here (ROADMAP.md)."""
-    _only_none("mesh", mesh, "fit")
+    the bundle's registry.
+
+    Under ``mesh`` every rank runs ``fit`` with the same arguments: the
+    save and eval decisions key on epoch numbers, so the collective
+    entries (the gather of a partitioned state before a save, each eval
+    step's loss reduction) stay aligned.  Only rank 0 writes
+    the log, the checkpoints and prints; a manager fit builds stamps the
+    mesh's topology into each commit marker."""
+    _data_ranks(mesh, "fit")
+    is_lead = process_index() == 0
     checkpoint_dir = checkpoint_dir or config.train.checkpoint_dir
     tr = config.train
     owns_manager = checkpoint_manager is None
     manager = checkpoint_manager
     if manager is None:
+        from ..parallel.mesh import mesh_topology
+
         manager = ckpt.CheckpointManager.from_config(
             checkpoint_dir, tr,
-            registry=telemetry.registry if telemetry is not None else None)
+            registry=telemetry.registry if telemetry is not None else None,
+            topology=mesh_topology(mesh, device=_model_device(state)))
     save_freq = max(1, int(tr.save_freq or 1))
     eval_freq = max(1, int(tr.eval_freq or 1))
     has_eval = eval_step is not None and make_eval_batches is not None
@@ -334,10 +356,11 @@ def fit(state: TrainState, train_step: Callable, config: Config,
         for epoch in range(start_epoch, start_epoch + epochs):
             state, train_loss = train_epoch(
                 state, train_step, make_batches(epoch), config, epoch,
-                log_fn=log_fn, telemetry=telemetry,
+                mesh=mesh, log_fn=log_fn, telemetry=telemetry,
                 should_stop=should_stop)
-            _log_line(checkpoint_dir,
-                      f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
+            if is_lead:
+                _log_line(checkpoint_dir,
+                          f"\nEpoch {epoch}\ttrain_loss: {train_loss}")
             do_save = epoch % save_freq == 0 or epoch == last_epoch
             do_eval = has_eval and (epoch % eval_freq == 0
                                     or epoch == last_epoch)
@@ -351,9 +374,11 @@ def fit(state: TrainState, train_step: Callable, config: Config,
                 with get_tracer().span("eval_epoch", track="eval",
                                        args={"epoch": epoch}):
                     val_loss = eval_epoch(state, eval_step,
-                                          make_eval_batches(epoch))
-                _log_line(checkpoint_dir, f"\tval_loss: {val_loss}")
-                log_fn(f"Epoch {epoch} val_loss {val_loss:.6f}")
+                                          make_eval_batches(epoch),
+                                          mesh=mesh)
+                if is_lead:
+                    _log_line(checkpoint_dir, f"\tval_loss: {val_loss}")
+                    log_fn(f"Epoch {epoch} val_loss {val_loss:.6f}")
             # the watermark folds in comparable values only: with eval
             # configured but thinned away this epoch, the (systematically
             # lower) train loss would contaminate the val-loss watermark

@@ -22,7 +22,7 @@ running average of the parameters in the state.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -104,6 +104,10 @@ class TrainState:
     swa_count: Optional[int] = None
     # the global step at which SWA began, the cyclic-LR sawtooth anchor
     swa_start_step: Optional[int] = None
+    # the storage of a partitioned state (``parallel.sharded.
+    # ShardedState``) while its split leaves are held as chunks; None for
+    # a full state
+    sharding: Optional[Any] = None
 
 
 def create_train_state(model: nn.Module, config: Config,

@@ -18,10 +18,11 @@ crashes without a human restarting the job.
   exhausts a bounded budget: :class:`SupervisorGaveUp` with the
   evidence, never a tight restart loop.
 - **Resume** (:meth:`RunSupervisor.resume`): ``restore_latest`` of the
-  checkpoint directory.  The port trains on one process and one card, so
-  :func:`reshard_on_topology_change` accepts only that unchanged topology
-  and raises ``NotImplementedError`` for any other (ROADMAP.md, multi-card
-  training).
+  checkpoint directory, then :func:`reshard_on_topology_change`: a
+  checkpoint stamped under another device topology (process count,
+  devices, platform, mesh) is re-placed onto the current mesh under
+  ``reshard="adjust"`` and refused under ``"refuse"``; one stamped under
+  another partition ruleset is refused under either policy.
 - **Observability**: segments carry a logical ``run_id`` and a
   ``segment`` index in ``RUN.json`` and in the event sink's records; a
   short milestone eval (:func:`milestone_eval`) runs on every resume.
@@ -138,26 +139,79 @@ def classify_error(error: str) -> str:
     return "deterministic"
 
 
-def reshard_on_topology_change(meta, path) -> None:
-    """The topology check of a just-restored checkpoint (shared by
-    :meth:`RunSupervisor.resume` and ``cli.train --resume``).  The port
-    trains on one process and one card, so it accepts a checkpoint
-    stamped with no other topology and raises ``NotImplementedError`` for
-    any other stamp (resharding across cards is not ported: ROADMAP.md,
-    queue 1 item 9)."""
-    stamped = meta.get("topology")
-    if stamped not in (None, {}, {"devices": 1, "processes": 1}):
-        raise NotImplementedError(
-            f"checkpoint {path}: restoring onto another device topology "
-            f"(stamped {stamped}) is not ported yet (ROADMAP.md, queue 1 "
-            "item 9: multi-card training)")
+class TopologyChanged(RuntimeError):
+    """Restore refused: the device topology differs from the one the
+    checkpoint was written under and ``reshard="refuse"`` is set."""
+
+
+class PartitionRulesChanged(TopologyChanged):
+    """Restore refused under either policy: the checkpoint was written
+    under another partition ruleset, and a ruleset change relayouts the
+    whole state."""
+
+
+def reshard_on_topology_change(state, meta, mesh, num_processes, policy,
+                               path, log_fn: Callable[[str], None] = print,
+                               rules=None, device=None):
+    """The topology policy for a just-restored, full ``state`` (shared by
+    :meth:`RunSupervisor.resume` and ``cli.train --resume``).
+
+    ``mesh`` is the current mesh (None for one process without one),
+    ``num_processes`` the current process count, ``policy`` ``"adjust"``
+    or ``"refuse"``, ``rules`` the current partition ruleset (None for the
+    replicated regime) and ``device`` the run's device (its platform
+    counts when there is no mesh).  A checkpoint stamped under another
+    ruleset raises :class:`PartitionRulesChanged`; another topology
+    raises :class:`TopologyChanged` under ``"refuse"`` and is re-placed
+    under ``"adjust"``: per the rules (``parallel.partition.
+    reshard_tree``), or replicated from rank 0 (``parallel.mesh.
+    reshard_replicated``).  An unchanged topology leaves the state as it
+    is (the step lays it out).  Checkpoints without a stamp, and the
+    port's earlier ``{"devices": 1, "processes": 1}``, read as one
+    process on one card.  Returns ``(state, change)``, ``change`` the
+    ``topology_mismatch`` dict or None."""
+    from ..parallel.mesh import reshard_replicated, topology_mismatch
+    from ..parallel.partition import reshard_tree, rules_fingerprint
+
+    rules_hash = rules_fingerprint(rules) if rules is not None else None
+    change = topology_mismatch(meta.get("topology"), mesh, num_processes,
+                               partition_rules=rules_hash, device=device)
+    if change and "partition_rules" in change:
+        stamped_h, current_h = change["partition_rules"]
+        raise PartitionRulesChanged(
+            f"checkpoint {path} was written under partition ruleset "
+            f"{stamped_h}, this run uses {current_h or 'none (replicated)'}"
+            ". A ruleset change relayouts the whole state: restore under "
+            "the original rules, or migrate explicitly (restore "
+            "replicated, then restart partitioned from a fresh stamp).")
+    if not change:
+        return state, None
+    desc = "; ".join(f"{k}: {a} -> {b}"
+                     for k, (a, b) in sorted(change.items()))
+    if policy == "refuse":
+        raise TopologyChanged(
+            f"checkpoint {path} was written under a different device "
+            f"topology ({desc}). Re-run with --reshard adjust to "
+            "re-place the state onto the current mesh (the global batch "
+            "and the world-size LR scaling will follow the new device "
+            "count), or restore on the original topology.")
+    log_fn(f"TOPOLOGY CHANGE on resume ({desc}): resharding the restored "
+           "state onto the current mesh; global batch and world-size LR "
+           f"scaling now follow the new device count (epoch "
+           f"{meta['epoch']} continues)")
+    if mesh is None:
+        return state, change
+    if rules is not None:
+        return reshard_tree(state, mesh, rules), change
+    return reshard_replicated(state), change
 
 
 def milestone_eval(state, eval_step, batches, mesh=None,
                    max_batches: int = 8) -> float:
     """Bounded eval pass fired on every resume: a few batches through
     the real eval step, so "the restore works" is a loss in the log and
-    the event stream, not an assumption."""
+    the event stream, not an assumption.  Under ``mesh`` every rank
+    calls it, like ``eval_epoch``."""
     from itertools import islice
 
     from .loop import eval_epoch
@@ -194,9 +248,18 @@ class RunSupervisor:
 
     def __init__(self, checkpoint_dir: str, *, max_restarts: int = 24,
                  crash_budget: int = 3, backoff_base_s: float = 1.0,
-                 backoff_max_s: float = 60.0,
+                 backoff_max_s: float = 60.0, reshard: str = "adjust",
+                 rules=None,
                  sleep: Callable[[float], None] = time.sleep,
                  log_fn: Callable[[str], None] = print):
+        if reshard not in ("adjust", "refuse"):
+            raise ValueError(f"reshard policy {reshard!r}; use 'adjust' "
+                             "or 'refuse'")
+        # the run's partition ruleset (None: replicated): resume()
+        # re-places per the rules on a topology change and refuses a
+        # checkpoint stamped under other rules
+        self.rules = rules
+        self.reshard = reshard
         self.directory = os.path.abspath(checkpoint_dir)
         self.max_restarts = int(max_restarts)
         self.crash_budget = int(crash_budget)
@@ -232,7 +295,12 @@ class RunSupervisor:
             return {}
 
     def _persist(self) -> None:
-        """Atomic merge-write of the ledger into RUN.json."""
+        """Atomic merge-write of the ledger into RUN.json, by rank 0 only
+        (RUN.json sits beside the checkpoints every rank reads)."""
+        from ..parallel.mesh import process_index
+
+        if process_index() != 0:
+            return
         os.makedirs(self.directory, exist_ok=True)
         path = self._run_path()
         # re-merge on-disk manifest fields a co-writer (cli.train)
@@ -454,11 +522,15 @@ class RunSupervisor:
                         **fields)
 
     # ------------------------------------------------------------ resume
-    def resume(self, state_template):
+    def resume(self, state_template, mesh=None, num_processes: int = 1,
+               device=None):
         """``restore_latest`` of the checkpoint directory into
-        ``state_template`` + the topology check
-        (:func:`reshard_on_topology_change`).  Returns ``(state, meta)``,
-        or None when nothing is restorable."""
+        ``state_template``, then the topology policy
+        (:func:`reshard_on_topology_change` under this supervisor's
+        ``reshard`` and ``rules``) against ``mesh`` and ``num_processes``.
+        Returns ``(state, meta)`` (``meta["topology_change"]`` holds the
+        mismatch, or None), or None when nothing is restorable.  Raises
+        :class:`TopologyChanged` under ``reshard="refuse"``."""
         from .checkpoint import latest_checkpoint, restore_checkpoint
 
         path = latest_checkpoint(self.directory)
@@ -466,12 +538,23 @@ class RunSupervisor:
             self._emit("resume", found=False)
             return None
         state, meta = restore_checkpoint(path, state_template)
-        reshard_on_topology_change(meta, path)
+        state, change = reshard_on_topology_change(
+            state, meta, mesh, num_processes, self.reshard, path,
+            log_fn=lambda s: self._log(f"supervisor: {s}"),
+            rules=self.rules, device=device)
+        meta["topology_change"] = change
+        if change:
+            self._emit("topology_change",
+                       **{k: {"from": a, "to": b}
+                          for k, (a, b) in change.items()})
         self._emit("resume", found=True, path=path, epoch=meta["epoch"],
-                   topology_changed=False)
+                   topology_changed=bool(change))
         rec = self._segment_record()
         if rec is not None:
             rec["resumed_epoch"] = meta["epoch"]
+            if change:
+                rec["topology_change"] = {
+                    k: [a, b] for k, (a, b) in change.items()}
             self._persist()
         return state, meta
 

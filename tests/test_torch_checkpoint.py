@@ -449,7 +449,8 @@ def test_fit_flushes_the_write_when_an_epoch_raises(tmp_path):
         fit(_state(), lambda s, x: (s, torch.tensor(1.0)), cfg,
             make_batches, epochs=3, log_fn=lambda s: None)
     assert is_committed(os.path.join(str(tmp_path), "epoch_0"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is a parallel.make_mesh DeviceMesh, or nothing
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit(_state(), lambda s, x: (s, torch.tensor(1.0)), cfg,
             make_batches, epochs=1, mesh=object())
 

@@ -16,8 +16,10 @@
 - ``chaos_kill_point``: a no-op without its variable, SIGKILL at the n-th
   hit of its point in a subprocess;
 - resume: ``restore_latest`` through the supervisor; an unchanged
-  single-process topology passes, any other raises
-  ``NotImplementedError`` naming the roadmap.
+  single-process topology (no stamp, the port's earlier ``{"devices": 1,
+  "processes": 1}``, this process's stamp) passes, another raises
+  ``TopologyChanged`` under ``refuse``, is re-placed under ``adjust``,
+  and another ruleset raises ``PartitionRulesChanged`` under either.
 (The supervised ring rebuild is in ``test_torch_input.py``.)
 """
 import dataclasses
@@ -43,11 +45,14 @@ from improved_body_parts_torch.train.checkpoint import (
     latest_checkpoint,
     save_checkpoint,
 )
+from improved_body_parts_torch.parallel.mesh import mesh_topology
 from improved_body_parts_torch.train.loop import fit
 from improved_body_parts_torch.train.supervisor import (
+    PartitionRulesChanged,
     RunSupervisor,
     StopRequested,
     SupervisorGaveUp,
+    TopologyChanged,
     chaos_kill_point,
     classify_error,
     reshard_on_topology_change,
@@ -310,8 +315,32 @@ def test_resume_and_topology_policy(tmp_path):
     assert meta["epoch"] == 3
     assert float(state.model.weight[0, 0]) == 2.0
     assert sup._segment_record()["resumed_epoch"] == 3
-    for stamp in (None, {}, {"devices": 1, "processes": 1}):
-        assert reshard_on_topology_change({"topology": stamp}, "p") is None
-    for stamp in ({"devices": 8}, {"devices": 1, "processes": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            reshard_on_topology_change({"topology": stamp}, "p")
+    here = mesh_topology(device="cpu")
+    for stamp in (None, {}, {"devices": 1, "processes": 1}, here):
+        for policy in ("refuse", "adjust"):
+            assert reshard_on_topology_change(
+                state, {"topology": stamp, "epoch": 3}, None, 1, policy,
+                "p", device="cpu") == (state, None)
+    for stamp in ({"devices": 8}, {"devices": 1, "processes": 2},
+                  dict(here, process_count=2, device_count=2)):
+        with pytest.raises(TopologyChanged, match="--reshard adjust"):
+            reshard_on_topology_change(state, {"topology": stamp}, None, 1,
+                                       "refuse", "p", device="cpu")
+        got, change = reshard_on_topology_change(
+            state, {"topology": stamp, "epoch": 3}, None, 1, "adjust", "p",
+            log_fn=lambda s: None, device="cpu")
+        assert got is state and change
+    with pytest.raises(PartitionRulesChanged, match="ruleset"):
+        reshard_on_topology_change(
+            state, {"topology": dict(here, partition_rules="0123abcd4567"),
+                    "epoch": 3}, None, 1, "adjust", "p", device="cpu")
+    save_checkpoint(str(tmp_path), _state(5.0), 4, train_loss=1.0,
+                    best_loss=1.0,
+                    topology=dict(here, process_count=2, device_count=2))
+    refusing = RunSupervisor(str(tmp_path), reshard="refuse",
+                             sleep=lambda s: None, log_fn=lambda s: None)
+    with pytest.raises(TopologyChanged, match="process_count"):
+        refusing.resume(_state(0.0), None, 1, device="cpu")
+    state, meta = sup.resume(_state(0.0), None, 1, device="cpu")
+    assert meta["epoch"] == 4 and meta["topology_change"] == {
+        "process_count": (2, 1), "device_count": (2, 1)}

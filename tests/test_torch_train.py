@@ -23,7 +23,8 @@ compute in both packages:
 - ``make_eval_step`` within rel 1e-5 of the JAX one;
 - ``train_epoch`` over ``batches`` of a 4-record fixture: mean loss within
   rel 1e-4 of the JAX ``train_epoch(mesh=None)``;
-- SWA averaging, and the options not ported yet raise naming ROADMAP.
+- SWA averaging; the options not ported yet raise naming ROADMAP, and a
+  mesh that is not a ``parallel.make_mesh`` mesh is refused.
 """
 import dataclasses
 import sys
@@ -316,7 +317,7 @@ def test_train_epoch_matches_jax(setup, jax64):
     tset.close()
     assert got == pytest.approx(jax64["epoch_loss"], rel=1e-4)
     assert len(logs) == SPE and state.step == 1 + SPE
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tloop.train_epoch(state, train_step, [], setup["tcfg"], 1,
                           mesh=object())
 
@@ -413,7 +414,9 @@ def test_unported_training_options_name_the_roadmap():
     model = build_model(cfg, device="cpu", train=True)
     opt = tstate.make_optimizer(model, cfg,
                                 tsched.step_decay_schedule(cfg.train, SPE))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh / rules are ported (tests/test_torch_dist.py); a mesh that is
+    # not a parallel.make_mesh DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step(model, cfg, opt, mesh=object(),
                               rules=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

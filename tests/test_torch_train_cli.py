@@ -14,8 +14,9 @@ builder.
   and ``--distill-alpha-warmup``; ``--swa --swa-freq`` resumes and saves
   an SWA checkpoint; ``cli.swa_stage`` on that workdir writes its
   artifact.
-- the flags the port does not have raise a clear error naming what they
-  need.
+- the conflicting flags, and the one option the port does not have,
+  raise a clear error (the multi-card flags run end to end in
+  ``test_torch_dist.py``).
 """
 import json
 import os
@@ -179,13 +180,13 @@ def test_swa_stage_cli_on_a_workdir(corpus, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--input-pipeline", "pool"], "pool"),
-    (["--reshard", "adjust"], "multi-card"),
-    (["--partition"], "multi-card"),
-    (["--partition-rules", "imhn"], "multi-card"),
-    (["--mesh-model", "2"], "multi-card"),
-    (["--coordinator", "localhost:1"], "multi-host"),
-    (["--num-processes", "2"], "multi-host"),
-    (["--process-id", "1"], "multi-host"),
+    (["--partition", "--swa"], "SWA stage without it"),
+    (["--partition", "--partition-rules", "nope"], "unknown"),
+    (["--partition-rules", "imhn"], "require --partition"),
+    (["--mesh-model", "2"], "require --partition"),
+    (["--coordinator", "localhost:1"], "pass both or neither"),
+    (["--num-processes", "2"], "pass both or neither"),
+    (["--process-id", "1"], "out of range"),
     (["--supervised", "--swa"], "SWA stage unsupervised"),
     (["--distill-from", "x", "--teacher-config", "tiny", "--device-gt",
       "4"], "--device-gt"),
