@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
 learn->AP loop, the accuracy tiers of inference, serving beyond one
 batcher (replica pool, cascade, process router), live video streams
-with the run telemetry, and multi-card training.
+with the run telemetry, multi-card training and height-sharded
+inference.
 
     python3 chip_smoke.py
 
@@ -106,7 +107,7 @@ released before phase 6, so phase 6's peak memory is its own;
    (a) the scale x rotation grids single-scale, scale_search (0.8, 1.0,
    1.2), rotation_search (0, 30, -30) and their product, on the trained
    ``synth_canonical`` built by ``serve.artifacts.checkpoint_predictor``:
-   for each grid, the fused and looped grid dispatches on the first 4
+   for each grid, the fused and looped grid dispatches on the first 2
    val images (:data:`GRID_AB_IMAGES`) in the compact and decode modes
    (``cli.tta_bench.ab_report``), payloads equal bit for bit, 1 dispatch
    an image fused and entries + 1 looped, ms an image of each; the OKS AP
@@ -149,7 +150,7 @@ released before phase 6, so phase 6's peak memory is its own;
    device, through the ring: on phase 6's people at 512^2 batch 4, the
    card's labels against the host ``Heatmapper``'s (max abs <= 1e-4);
    then ``cli.train.train`` (``canonical``, one epoch of 12 steps on
-   phase 6's records, ``pipeline="shm"``, 4 spawn workers over
+   phase 6's records, ``pipeline="shm"``, 2 spawn workers over
    ``MemoryDataset`` records, ``device_gt`` 16, a validation set so the
    eval ring runs, under a ``RunSupervisor`` so the rings are the
    supervised ones): its ``device_prefetch`` feeds the steps; the focal
@@ -266,6 +267,33 @@ released before phase 6, so phase 6's peak memory is its own;
    saved state (SHA-256 equal), ``"refuse"`` raises ``TopologyChanged``
    naming ``process_count``.  One card, so no multi-card speed is
    claimed.
+13. height-sharded inference (``Predictor(mesh=)``, ``parallel.
+   spatial``), in fp32 with bf16 autocast and TF32 off in both arms:
+   (a) a one-rank NCCL mesh (1, 1): phase 7's checkpoint through
+   ``predict_decoded`` on the 12 val images, every payload equal to the
+   plain predictor's bit for bit.  (b) two gloo ranks over CUDA tensors
+   on card 0, spawned: ``canonical`` (seeded, 128,998,760 parameters) on
+   one 1536x768 image at boxsize 1536 over mesh (1, 2) (24 bottom rows,
+   12 a rank), ``predict``'s maps within 1e-3 x their max of the
+   one-process plain predictor's, each rank's peak memory and ms an
+   image beside the plain run's, the collectives a forward; phase 7's
+   checkpoint over (1, 2): ``predict_decoded`` on the 12 val images
+   (each image's people within 1 px of the plain fused lane's, the OKS
+   AP within 0.005 of the plain lane's and of phase 7's), the
+   ``predict_compact`` and ``predict_fast`` people of one image as
+   their plain lanes', each decode kernel 12 launches a rank, and the
+   three decode kernels bit for bit on rank 0's gathered maps of the
+   first val image; the multi-rank distillation step of ``cli.train``
+   (``make_distill_train_step(mesh=)``) in float64, ``canonical_student``
+   from a seeded ``canonical`` teacher at 2 rows a rank against the
+   plain step on the same 4 rows (loss rel 1e-5, grad norm rel 1e-3, BN
+   stats 1e-5, the ranks' states equal, focal 10 + 10 a rank held to
+   the plain versions, the teacher unchanged).  (c) four gloo ranks:
+   phase 7's lanes over (2, 2) with (b)'s gates, the batch and grid
+   lanes refused, and a 640-row input over (1, 4) split 3 / 3 / 2 / 2
+   with its maps within 1e-3 x max.  (d) ``cli.stream_bench --devices
+   1``: 2 streams x 8 frames on phase 7's checkpoint, ``serve_devices``
+   1, every frame delivered.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -275,7 +303,9 @@ stand beside them in ``launches_by_path``, phase 8's multi-scale grid as
 and ``swa``, phase 10's as ``pool``, ``cascade`` and
 ``router_stopped_workers`` (the killed worker generation left out),
 phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
-``telemetry``, phase 12(a)'s as ``multi_card``; the focal kernels' device ms a step at ``ae``'s and
+``telemetry``, phase 12(a)'s as ``multi_card``, phase 13(b)'s rank 0 as
+``spatial`` and ``distill_multi_rank``; the focal kernels' device ms a
+step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
 ``*_same_inputs_ms``, ``*_bound_ms`` and ``*_bound_by`` beside them; the decode kernels' times at phase 8's grid shape as
@@ -328,9 +358,9 @@ PHASE8_GRIDS = (("single_scale", {}),
 GRID_SHAPE = (768, 1151)
 SERVE_IMAGE = (427, 640)
 DTYPE_VAL_IMAGES = 48     # the dtype matrix's gate: phase 7's val seed
-# the grid A/B's parity and timing: phase 7's first 4 val images (6
+# the grid A/B's parity and timing: phase 7's first 2 val images (6
 # passes of each grid an image; the APs take all 12)
-GRID_AB_IMAGES = 4
+GRID_AB_IMAGES = 2
 FOCAL_FWD_PASSES = ("focal_fwd",)
 FOCAL_BWD_PASSES = ("focal_bwd",)
 
@@ -2107,7 +2137,7 @@ VARIANT_COUNTS = {
     ("imhn_final", "final_384", 4): 227_066_536,
 }
 FOCAL_KERNELS = ("focal_fwd", "focal_bwd")
-RING_WORKERS, MAX_PEOPLE = 4, 16
+RING_WORKERS, MAX_PEOPLE = 2, 16
 
 
 def focal_counts() -> dict:
@@ -4285,6 +4315,562 @@ def multi_card_training(dev, smi, sync, work):
     return {"multi_card": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: height-sharded inference, multi-rank distillation, --devices
+P13_TALL = (1536, 768)          # (b) the full-width image, boxsize 1536
+P13_UNEVEN = (640, 480)         # (c) a 640-row input over 4 'model' ranks
+P13_MAPS_TOL = 1e-3             # max abs gap / the maps' max
+
+
+def fp32_predictor(config, checkpoint, boxsize, dev):
+    """``serve.checkpoint_predictor`` at fp32 storage with the config's
+    bf16 autocast off: the phase compares in fp32 (TF32 off), where a
+    shard's other cuDNN algorithms move the maps by rounding only."""
+    import torch
+
+    from improved_body_parts_torch.serve import checkpoint_predictor
+
+    pred = checkpoint_predictor(config, checkpoint, params_dtype="fp32",
+                                boxsize=boxsize, device=dev)
+    pred.model.compute_dtype = torch.float32
+    return pred
+
+
+def sharded_twin(pred, mesh):
+    """``pred``'s configuration over ``mesh`` (its model, shared)."""
+    from improved_body_parts_torch.infer import Predictor
+
+    return Predictor(pred.model, pred.skeleton, pred.params,
+                     pred.model_params, bucket=pred.bucket,
+                     compact_topk=pred.compact_topk,
+                     assembly_pmax=pred.assembly_pmax, device=pred.device,
+                     mesh=mesh)
+
+
+def people_gap(got, want) -> float:
+    """The largest keypoint distance in px between two decodes of one
+    image (lists of (COCO keypoints, score)), each wanted person matched
+    to its nearest got one; inf when the counts differ."""
+    if len(got) != len(want):
+        return float("inf")
+    worst = 0.0
+    for kps, _ in want:
+        worst = max(worst, min(max(np.hypot(a[0] - b[0], a[1] - b[1])
+                                   for a, b in zip(kps, other)
+                                   if a is not None and b is not None)
+                               for other, _ in got))
+    return worst
+
+
+def lane_people(sk, params, lane, res):
+    """The people of one image from a lane's result."""
+    from improved_body_parts_torch.infer import (
+        decode,
+        decode_compact,
+        decode_device,
+    )
+
+    if lane == "decoded":
+        check(res.ok, "13: an overflow flag is set on a val image")
+        return decode_device(res, sk)
+    if lane == "compact":
+        return decode_compact(res, params, sk)
+    heat, paf, mask, scale = res
+    return decode(heat, paf, params, sk, peak_mask=mask, coord_scale=scale)
+
+
+def p13_phase7_lanes(pred, images, capture: bool):
+    """``predict_decoded`` of every val image (the decode kernels'
+    counters set to 0 before, read after; the first image's lane decode
+    captured when ``capture``), then ``predict_compact`` and
+    ``predict_fast`` of the first."""
+    import torch
+
+    calls = []
+    if capture:
+        pred.decode_maps = first_calls(pred.decode_maps, 1, calls)
+    reset_launches()
+    decoded = [pred.predict_decoded(im) for im in images]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if capture:
+        del pred.decode_maps
+    return dict(decoded=decoded, launches=launches, calls=calls,
+                compact=pred.predict_compact(images[0]),
+                fast=pred.predict_fast(images[0]))
+
+
+def p13_config(name: str):
+    """``name``'s config with bf16 autocast off."""
+    import dataclasses
+
+    from improved_body_parts_torch.config import get_config
+
+    cfg = get_config(name)
+    return cfg.replace(train=dataclasses.replace(cfg.train,
+                                                 bf16_compute=False))
+
+
+def p13_distill(dev, mesh=None):
+    """(state, teacher, step) of the float64 distillation arm: a seeded
+    ``canonical_student`` from a seeded ``canonical`` teacher (eval), the
+    step ``cli.train.train`` builds for a teacher
+    (``make_distill_train_step``, over ``mesh`` when given)."""
+    import torch
+
+    from improved_body_parts_torch.models import build_model
+    from improved_body_parts_torch.train import (
+        bind_teacher,
+        create_train_state,
+        make_distill_train_step,
+        make_optimizer,
+        step_decay_schedule,
+    )
+
+    cfg = p13_config("canonical_student")
+    student = build_model(cfg, device=dev, seed=0, train=True).to(
+        torch.float64)
+    teacher = build_model(p13_config("canonical"), device=dev, seed=1).to(
+        torch.float64)
+    opt = make_optimizer(student, cfg, step_decay_schedule(
+        cfg.train, steps_per_epoch=4))
+    state = create_train_state(student, cfg, opt)
+    step = bind_teacher(make_distill_train_step(
+        student, teacher, cfg, opt, health=True, mesh=mesh), teacher)
+    return cfg, state, teacher, step
+
+
+def sha_of(module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p13_rank_two(rank, dev, job):
+    """13(b) on one of two ranks: the full-width ``canonical`` forward,
+    phase 7's lanes and the float64 distillation, over a (1, 2) mesh."""
+    import torch
+
+    from improved_body_parts_torch.ops import losses
+    from improved_body_parts_torch.parallel import make_mesh, shard_batch
+    from improved_body_parts_torch.parallel.spatial import (
+        COLLECTIVES,
+        reset_collectives,
+    )
+
+    mesh = make_mesh(1, 2, device=dev.type)
+    res = {}
+    # full width: canonical, seeded, fp32, one tall image at boxsize 1536
+    base = fp32_predictor("canonical", None, P13_TALL[0], dev)
+    pred = sharded_twin(base, mesh)
+    tall = job["tall"]
+    # the parent's one-process references run while the ranks start;
+    # the card is the ranks' from here on
+    check(job["go"].wait(600), "13b: the parent's references timed out")
+    pred.predict(tall)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_collectives()
+    t0 = time.perf_counter()
+    heat, paf = pred.predict(tall)
+    torch.cuda.synchronize()
+    res["full_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["full_mem"] = torch.cuda.max_memory_allocated()
+    res["collectives"] = dict(COLLECTIVES)
+    np.save(os.path.join(job["work"], f"p13_heat_{rank}.npy"), heat)
+    np.save(os.path.join(job["work"], f"p13_paf_{rank}.npy"), paf)
+    del base, pred, heat, paf
+    torch.cuda.empty_cache()
+    # phase 7's checkpoint
+    base = fp32_predictor(job["config"], job["checkpoint"], job["net"], dev)
+    lanes = p13_phase7_lanes(sharded_twin(base, mesh), job["images"],
+                             capture=rank == 0)
+    if rank == 0:
+        hold_lane_call(base.skeleton, lanes.pop("calls")[0],
+                       "rank 0's gathered maps of the first val image",
+                       job["smi"], tag="[13b sharded]")
+    lanes.pop("calls", None)
+    res["lanes"] = lanes
+    del base
+    torch.cuda.empty_cache()
+    # the float64 distillation, 2 rows a rank
+    dmesh = make_mesh(2, 1, device=dev.type)
+    cfg, state, teacher, step = p13_distill(dev, dmesh)
+    before = sha_of(teacher)
+    calls, fused = [], losses.focal_l2_fused
+    losses.focal_l2_fused = first_calls(fused, 5, calls)
+    reset_focal()
+    try:
+        state, loss, gnorm = step(state, *shard_batch(job["batch"], dmesh))
+        torch.cuda.synchronize()
+    finally:
+        losses.focal_l2_fused = fused
+    launches = focal_counts()
+    hold_focal(calls, torch.tensor(cfg.train.nstack_weight, device=dev)
+               * 0.25, f"rank {rank}'s distillation calls",
+               tag="[13b distill]")
+    res["distill"] = dict(loss=float(loss), gnorm=float(gnorm),
+                          launches=launches, bn=bn_stats(state),
+                          sha=sha_of(state.model),
+                          teacher_unchanged=sha_of(teacher) == before)
+    return res
+
+
+def p13_rank_four(rank, dev, job):
+    """13(c) on one of four ranks: phase 7's lanes over a (2, 2) mesh,
+    two refusals, and a 640-row input over a (1, 4) mesh."""
+    import torch
+
+    from improved_body_parts_torch.config import (
+        InferenceModelParams,
+        InferenceParams,
+    )
+    from improved_body_parts_torch.infer import Predictor
+    from improved_body_parts_torch.parallel import make_mesh
+    from improved_body_parts_torch.parallel.spatial import HeightShard
+
+    res = {}
+    base = fp32_predictor(job["config"], job["checkpoint"], job["net"], dev)
+    pred = sharded_twin(base, make_mesh(2, 2, device=dev.type))
+    lanes = p13_phase7_lanes(pred, job["images"], capture=False)
+    lanes.pop("calls")
+    res["lanes"] = lanes
+    refused = {}
+    grid = InferenceParams(scale_search=(0.8, 1.0))
+    for name, call in (
+            ("batch", lambda: pred.predict_decoded_batch(job["images"][:2])),
+            ("grid", lambda: pred.predict_decoded(job["images"][0],
+                                                  params=grid))):
+        try:
+            call()
+            refused[name] = None
+        except ValueError as e:
+            refused[name] = str(e)
+    res["refused"] = refused
+    # an uneven split: 640 rows are 10 bottom rows of 64, 3 / 3 / 2 / 2
+    mesh = make_mesh(1, 4, device=dev.type)
+    base = Predictor(base.model, base.skeleton, model_params=(
+        InferenceModelParams(boxsize=P13_UNEVEN[0])), device=dev)
+    pred = sharded_twin(base, mesh)
+    img = job["uneven"]
+    heat, paf = pred.predict(img)
+    res["rows"] = HeightShard.over(mesh, P13_UNEVEN[0], pred.shard_stride
+                                   ).rows
+    if rank == 0:
+        want = base.predict(img)
+        res["uneven"] = (max(float(np.abs(a - b).max())
+                             for a, b in zip((heat, paf), want)),
+                         max(float(np.abs(w).max()) for w in want))
+    torch.cuda.synchronize()
+    return res
+
+
+def p13_rank(rank: int, n: int, coord: str, job, out) -> None:
+    """One of ``n`` gloo ranks over CUDA tensors on card 0 (phase 13)."""
+    sys.path.insert(0, ROOT)
+    try:
+        import torch
+
+        from improved_body_parts_torch.parallel import (
+            initialize_distributed,
+            shutdown_distributed,
+        )
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device(job["device"])
+        initialize_distributed(coord, n, rank, device=dev, backend="gloo")
+        body = p13_rank_two if n == 2 else p13_rank_four
+        out.put((rank, body(rank, dev, job)))
+        shutdown_distributed()
+    except BaseException as e:
+        out.put((rank, dict(error=f"{type(e).__name__}: {e}")))
+        raise
+
+
+def start_ranks(n: int, job):
+    """:func:`p13_rank` on ``n`` spawned ranks; (processes, queue)."""
+    import multiprocessing as mp
+
+    from improved_body_parts_torch.parallel.mesh import free_port
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=p13_rank, args=(r, n, coord, job, out))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    return procs, out
+
+
+def join_ranks(procs, out, timeout_s: float = 600.0) -> dict:
+    """The ranks' results, {rank: result}, once every rank exited."""
+    got = {}
+    try:
+        for _ in procs:
+            rank, rec = out.get(timeout=timeout_s)
+            got[rank] = rec
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    n = len(procs)
+    for rank, rec in sorted(got.items()):
+        check("error" not in rec, f"13: rank {rank} of {n}: "
+              f"{rec.get('error')}")
+    check(all(p.exitcode == 0 for p in procs),
+          f"13: rank exit codes {[p.exitcode for p in procs]}")
+    return got
+
+
+def check_lanes(label, sk, params, got, plain, ids, gts, smi):
+    """The (b) / (c) gates on one rank's phase 7 lanes against the plain
+    predictor's: each val image's people within 1 px (same count), the
+    OKS AP within 0.005 of the plain lane's in the same precision and of
+    phase 7's fused lane (in bf16 autocast, so it differs from the
+    fp32 lanes by the compute's rounding, not the split's), the compact
+    and fast lanes' people as their plain lanes', every decode kernel
+    launched once an image."""
+    people = [lane_people(sk, params, "decoded", d) for d in got["decoded"]]
+    gaps = [people_gap(p, w) for p, w in zip(people, plain["people"])]
+    ap = oks_ap(ids, people, gts)
+    other = {lane: people_gap(lane_people(sk, params, lane, got[lane]),
+                              plain[lane]) for lane in ("compact", "fast")}
+    check(max(gaps) <= 1.0, f"{label}: people off the plain fused lane's "
+          f"by {max(gaps):.3f} px (inf: another count)")
+    for what, want in (("the plain fp32 lane", plain["ap"]),
+                       ("phase 7's fused lane", plain["ap_fused"])):
+        check(abs(ap - want) <= 0.005, f"{label}: AP {ap:.4f} against "
+              f"{what}'s {want:.4f}")
+    check(max(other.values()) <= 1.0, f"{label}: compact / fast lanes' "
+          f"people off their plain lanes' by {other}")
+    check(got["launches"] == {k: len(ids) for k in DECODE_KERNELS},
+          f"{label}: decode launches {got['launches']} for {len(ids)} "
+          "images")
+    print(f"[{label}] {len(ids)} val images through predict_decoded: "
+          f"people within {max(gaps):.3g} px of the plain fused lane's, "
+          f"OKS AP {ap:.4f} (the plain fp32 lane {plain['ap']:.4f}; phase "
+          f"7's fused lane in bf16 autocast {plain['ap_fused']:.4f}); "
+          f"predict_compact / predict_fast people within "
+          f"{other['compact']:.3g} / {other['fast']:.3g} px of their "
+          f"plain lanes'; decode launches {got['launches']} [{smi}]")
+    return ap
+
+
+def height_sharded_inference(dev, smi, ctx, sync, work):
+    """Phase 13: (a) a one-rank NCCL mesh, payloads bit for bit; (b) two
+    gloo ranks on card 0: ``canonical`` at boxsize 1536, phase 7's
+    lanes, the float64 multi-rank distillation; (c) four gloo ranks:
+    phase 7's lanes over (2, 2), refusals, an uneven split over (1, 4);
+    (d) ``cli.stream_bench --devices 1``.  Returns the launches of the
+    sharded lane (rank 0 of (b)) and of the multi-rank distillation."""
+    import json as _json
+
+    import torch
+
+    from improved_body_parts_torch.cli import stream_bench
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+    from improved_body_parts_torch.parallel.mesh import free_port
+
+    t0 = time.perf_counter()
+    sk = get_config(SYNTH_AP["config"]).skeleton
+    ids, images, gts = val_set(ctx)
+    plain = fp32_predictor(SYNTH_AP["config"], ctx["checkpoint"],
+                           ctx["net"], dev)
+    params = plain.params
+    decoded = [plain.predict_decoded(im) for im in images]
+    want = {"people": [lane_people(sk, params, "decoded", d)
+                       for d in decoded],
+            "ap_fused": ctx["ap_fused"],
+            "compact": lane_people(sk, params, "compact",
+                                   plain.predict_compact(images[0])),
+            "fast": lane_people(sk, params, "fast",
+                                plain.predict_fast(images[0]))}
+    want["ap"] = oks_ap(ids, want["people"], gts)
+    print(f"[13 height-sharded] the plain fused lane of phase 7's "
+          f"checkpoint in fp32 (autocast off, TF32 off): OKS AP "
+          f"{want['ap']:.4f} on the {len(ids)} val images (phase 7's, in "
+          f"bf16 autocast: {ctx['ap_fused']:.4f}) [{smi}]")
+
+    # (a) one rank under NCCL: the sharded lane is the plain one
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        one = sharded_twin(plain, make_mesh(1, 1, device=dev.type))
+        same = [same_payload(one.predict_decoded(im), d)
+                for im, d in zip(images, decoded)]
+    finally:
+        shutdown_distributed()
+    check(all(same), f"13a: {same.count(False)} of {len(same)} payloads "
+          "differ from the plain predictor's on a one-rank mesh")
+    print(f"[13a one rank] NCCL mesh (1, 1), {SYNTH_AP['config']} fp32: "
+          f"{len(images)} predict_decoded payloads equal to the plain "
+          "predictor's bit for bit")
+    marks = [("a", time.perf_counter())]
+
+    # (b)'s ranks start (imports, the card's context, the group) while
+    # this process makes the one-process references: canonical at 1536
+    # and the distillation step; their timed work waits on ``go``
+    import multiprocessing as mp
+
+    rng = np.random.default_rng(13)
+    tall = rng.integers(0, 256, (*P13_TALL, 3), dtype=np.uint8)
+    batch = p12_batch(sync["records"], p13_config("canonical_student"), 4,
+                      P12_WARM + P12_STEPS + 1)
+    go = mp.get_context("spawn").Event()
+    job = dict(device=str(dev), work=work, smi=smi, go=go,
+               config=SYNTH_AP["config"],
+               checkpoint=ctx["checkpoint"], net=ctx["net"], images=images,
+               tall=tall, batch=batch,
+               uneven=rng.integers(0, 256, (*P13_UNEVEN, 3),
+                                   dtype=np.uint8))
+    ranks = start_ranks(2, job)
+    full = fp32_predictor("canonical", None, P13_TALL[0], dev)
+    n_params = sum(p.numel() for p in full.model.parameters())
+    check(n_params == 128_998_760, f"13b: canonical has {n_params} "
+          "parameters")
+    full.predict(tall)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    heat0, paf0 = full.predict(tall)
+    torch.cuda.synchronize()
+    full_ms = 1e3 * (time.perf_counter() - t1)
+    full_mem = torch.cuda.max_memory_allocated()
+    del full
+    torch.cuda.empty_cache()
+    cfg, state, teacher, step = p13_distill(dev)
+    _, loss, gnorm = step(state, *batch)
+    ref = dict(loss=float(loss), gnorm=float(gnorm), bn=bn_stats(state))
+    del state, teacher, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    go.set()
+    two = join_ranks(*ranks)
+    # (b) full width
+    maps_max = max(float(np.abs(heat0).max()), float(np.abs(paf0).max()))
+    for rank in (0, 1):
+        heat = np.load(os.path.join(work, f"p13_heat_{rank}.npy"))
+        paf = np.load(os.path.join(work, f"p13_paf_{rank}.npy"))
+        gap = max(float(np.abs(heat - heat0).max()),
+                  float(np.abs(paf - paf0).max()))
+        check(gap <= P13_MAPS_TOL * maps_max, f"13b full width rank {rank}:"
+              f" maps {gap:.3g} from the plain predictor's (max "
+              f"{maps_max:.3g})")
+        r = two[rank]
+        print(f"[13b full width] canonical fp32, autocast off "
+              f"({n_params} parameters, "
+              f"seeded), one {P13_TALL[0]}x{P13_TALL[1]} image at boxsize "
+              f"{P13_TALL[0]} (24 bottom rows, 12 a rank) over mesh (1, 2),"
+              f" rank {rank}: predict maps max abs {gap:.3g} from the "
+              f"one-process plain predictor's (maps' max {maps_max:.3g}, "
+              f"gate {P13_MAPS_TOL:g} x max); {r['full_ms']:.1f} ms an "
+              f"image, peak device memory {r['full_mem'] / 2**30:.2f} GiB "
+              f"(the plain predictor: {full_ms:.1f} ms, "
+              f"{full_mem / 2**30:.2f} GiB); collectives a forward "
+              f"{r['collectives']}; reported, not claimed: two ranks "
+              f"share one card [{smi}]")
+    # (b) phase 7's lanes, both ranks
+    for rank in (0, 1):
+        check_lanes(f"13b sharded rank {rank}", sk, params,
+                    two[rank]["lanes"], want, ids, gts, smi)
+    check(all(same_payload(a, b) for a, b in zip(
+        two[0]["lanes"]["decoded"], two[1]["lanes"]["decoded"])),
+        "13b: the two ranks' payloads differ")
+    # (b) distillation
+    gaps = []
+    for rank in (0, 1):
+        d = two[rank]["distill"]
+        own = p12_gaps(d, ref, ref)[0]
+        gaps.append(own)
+        bad = [f"{what} {v:.3g} > {tol:g}" for what, v, tol in zip(
+            ("loss rel", "grad norm rel", "BN stats"), own, P12_FLOORS)
+            if v > tol]
+        check(not bad, f"13b distill rank {rank}: {', '.join(bad)} "
+              "against the plain float64 distill step")
+        check(d["launches"] == {k: 10 for k in FOCAL_KERNELS},
+              f"13b distill rank {rank}: focal launches {d['launches']}, "
+              "want 10 + 10 (two loss terms x 5 scales)")
+        check(d["teacher_unchanged"], f"13b distill rank {rank}: the "
+              "teacher's state changed")
+    d0, d1 = two[0]["distill"], two[1]["distill"]
+    check((d0["loss"], d0["gnorm"], d0["sha"])
+          == (d1["loss"], d1["gnorm"], d1["sha"]),
+          "13b distill: the two ranks' steps differ")
+    print(f"[13b distill] canonical_student from a canonical teacher, "
+          f"float64, 2 gloo ranks x 2 rows at {cfg.skeleton.height}x"
+          f"{cfg.skeleton.width} against the plain float64 distill step on "
+          f"the same 4 rows: loss {d0['loss']:.6f} (rel "
+          f"{gaps[0][0]:.3g}), grad norm {d0['gnorm']:.6f} (rel "
+          f"{gaps[0][1]:.3g}), BN stats max abs {gaps[0][2]:.3g}; the "
+          f"ranks' states equal; focal launches {d0['launches']} a rank; "
+          f"the teacher unchanged [{smi}]")
+    marks.append(("b", time.perf_counter()))
+
+    # (c) four ranks
+    four = join_ranks(*start_ranks(4, job))
+    for rank in range(4):
+        check_lanes(f"13c sharded rank {rank}", sk, params,
+                    four[rank]["lanes"], want, ids, gts, smi)
+        refused = four[rank]["refused"]
+        check(refused["batch"] is not None
+              and "decode_batch does not support" in refused["batch"]
+              and refused["grid"] is not None
+              and "spatial sharding mesh" in refused["grid"],
+              f"13c rank {rank}: refusals {refused}")
+    rows = [four[r]["rows"] for r in range(4)]
+    check([(b - a) // 64 for a, b in rows] == [3, 3, 2, 2],
+          f"13c: the 640-row split is {rows}")
+    gap, top = four[0]["uneven"]
+    check(gap <= P13_MAPS_TOL * top, f"13c uneven: maps {gap:.3g} from "
+          f"the plain predictor's (max {top:.3g})")
+    print(f"[13c four ranks] mesh (2, 2): the batch lane refused "
+          f"({four[0]['refused']['batch']!r}), the grid lane refused "
+          f"({four[0]['refused']['grid']!r}); mesh (1, 4): a "
+          f"{P13_UNEVEN[0]}x{P13_UNEVEN[1]} input split into rows {rows} "
+          f"(3 / 3 / 2 / 2 bottom rows), predict maps max abs {gap:.3g} "
+          f"from the plain predictor's (max {top:.3g}) [{smi}]")
+    marks.append(("c", time.perf_counter()))
+
+    # (d) cli.stream_bench --devices 1
+    out = os.path.join(work, "stream_bench_torch.json")
+    stream_bench.main(["--config", SYNTH_AP["config"], "--checkpoint",
+                       ctx["checkpoint"], "--params-dtype", "fp32",
+                       "--boxsize", str(ctx["net"]), "--streams", "2",
+                       "--frames", "8", "--rounds", "1", "--size", "256",
+                       "--planted", "0", "--devices", "1", "--device",
+                       dev.type, "--telemetry-sink", "none", "--out", out])
+    with open(out) as f:
+        rep = _json.load(f)
+    check(rep["serve_devices"] == 1, f"13d: serve_devices "
+          f"{rep['serve_devices']}")
+    check(rep["frames_delivered_total"] == 16
+          and rep["frames_failed_total"] == 0
+          and rep["frames_dropped_total"] == 0,
+          f"13d: delivered {rep['frames_delivered_total']} of 16 frames")
+    print(f"[13d stream_bench] --devices 1, 2 streams x 8 frames on phase "
+          f"7's checkpoint: serve_devices {rep['serve_devices']}, "
+          f"{rep['frames_delivered_total']} frames delivered, replica "
+          f"completions {rep['serve_replica_completed']}, per-stream fps "
+          f"{rep['per_stream_fps']} [{smi}]")
+    marks.append(("d", time.perf_counter()))
+    print(f"[13 height-sharded] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
+    return {"spatial": two[0]["lanes"]["launches"],
+            "distill_multi_rank": two[0]["distill"]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -4581,6 +5167,9 @@ def main() -> int:
         streams = live_streams(dev, smi, trained, work)
         # ------------------------------ 12. multi-card training
         streams.update(multi_card_training(dev, smi, sync_train, work))
+        # ------------------------- 13. height-sharded inference
+        streams.update(height_sharded_inference(dev, smi, trained,
+                                                sync_train, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -23,6 +23,12 @@ over the ground-truth ``DetectionEngine`` on the ``static`` and
 ``slow_pan`` scenes (:func:`quality_arm`), gating equal synthetic AP and
 identity switches.
 
+The batcher serves across ``--devices N`` replicas
+(``Predictor.device_replica``): cards 0..N-1, every visible card for 0,
+more than are visible refused; on ``--device cpu``, N CPU replicas (the
+JAX tool's virtual host devices).  The artifact records
+``serve_devices`` and the requests each replica completed.
+
 The model is ``--checkpoint``'s (an epoch directory of
 ``train.checkpoint``) or the seeded init of ``--config``; ``--planted N``
 (default 2) adds N planted people's maps to its output
@@ -317,7 +323,16 @@ class PlantedModel:
         self.num_layers = skeleton.num_layers
 
     def __getattr__(self, name):
-        return getattr(self.__dict__["model"], name)
+        if name == "model":      # not set yet: a copy being made
+            raise AttributeError(name)
+        return getattr(self.model, name)
+
+    def to(self, device):
+        """The wrapper on ``device`` (a serving replica's deep copy is
+        moved so)."""
+        self.model = self.model.to(device)
+        self.maps = self.maps.to(device)
+        return self
 
     def __call__(self, imgs):
         import torch
@@ -397,6 +412,10 @@ def _parser():
     ap.add_argument("--params-dtype", default="auto",
                     choices=["auto", "bf16", "fp32"])
     ap.add_argument("--no-native", action="store_true")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="device replicas the batcher serves across "
+                         "(0 = every visible card; on --device cpu, N "
+                         "CPU replicas, 0 = one)")
     ap.add_argument("--telemetry-sink", default="auto",
                     help="JSONL event stream ('auto' = <out>_events"
                          ".jsonl, 'none' disables)")
@@ -428,6 +447,23 @@ def build_predictor(args, device):
     return pred
 
 
+def serve_devices(count: int, device) -> list:
+    """The replicas' devices for ``--devices count`` on ``device``: cards
+    0..N-1 (0 = every visible card; more than are visible is refused),
+    or N CPU replicas (the JAX tool's virtual host devices)."""
+    import torch
+
+    if count < 0:
+        raise SystemExit(f"--devices {count}: must be >= 0")
+    if device.type == "cpu":
+        return [torch.device("cpu")] * max(count, 1)
+    visible = torch.cuda.device_count()
+    if count > visible:
+        raise SystemExit(f"--devices {count}: only {visible} CUDA "
+                         f"device(s) are visible")
+    return [torch.device("cuda", i) for i in range(count or visible)]
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     if os.path.basename(args.out) in JAX_ARTIFACTS:
@@ -441,6 +477,9 @@ def main(argv=None):
     from . import exit_report
 
     device = resolve_device(args.device)
+    devices = serve_devices(args.devices, device)
+    print(f"platform={device.type} serve_devices={len(devices)}",
+          flush=True)
     pred = build_predictor(args, device)
     videos = [PreRendered(SyntheticVideo(seed=i, num_people=args.people,
                                          size=(args.size, args.size),
@@ -472,8 +511,9 @@ def main(argv=None):
     if telemetry.server is not None:
         print(f"telemetry: {telemetry.server.url}/metrics", flush=True)
     try:
-        report = _bench(args, device, pred, videos, fp_cfg, telemetry,
-                        sink_path, DynamicBatcher, SessionManager)
+        report = _bench(args, device, devices, pred, videos, fp_cfg,
+                        telemetry, sink_path, DynamicBatcher,
+                        SessionManager)
     finally:
         telemetry.close()
     _write(args.out, report)
@@ -487,10 +527,12 @@ def _write(path, report):
         strict_dump(report, f, indent=2)
 
 
-def _bench(args, device, pred, videos, fp_cfg, telemetry, sink_path,
-           DynamicBatcher, SessionManager):
-    """The rounds and the verdicts; returns the artifact's document
-    (its ``verdict`` block is also the ``CLI_REPORT``'s fields)."""
+def _bench(args, device, devices, pred, videos, fp_cfg, telemetry,
+           sink_path, DynamicBatcher, SessionManager):
+    """The rounds and the verdicts, over a batcher of one
+    ``Predictor.device_replica`` on each of ``devices``; returns the
+    artifact's document (its ``verdict`` block is also the
+    ``CLI_REPORT``'s fields)."""
     report = {
         "device": device.type, "config": args.config,
         "checkpoint": args.checkpoint,
@@ -500,6 +542,7 @@ def _bench(args, device, pred, videos, fp_cfg, telemetry, sink_path,
         "smoothing": args.smoothing, "rounds": args.rounds,
         "max_batch": args.max_batch, "max_wait_ms": args.max_wait_ms,
         "planted_people": args.planted,
+        "serve_devices": len(devices),
         "telemetry_events": sink_path,
         "fastpath_mode": bool(args.fastpath),
     }
@@ -511,6 +554,7 @@ def _bench(args, device, pred, videos, fp_cfg, telemetry, sink_path,
                         max_queue=args.max_queue,
                         decode_workers=args.decode_workers,
                         use_native=not args.no_native,
+                        devices=devices,
                         registry=telemetry.registry) as server:
         # the fast path's ROI tier lands in exactly ONE extra lane
         # bucket (full height, roi_width), warmed here with the
@@ -581,6 +625,9 @@ def _bench(args, device, pred, videos, fp_cfg, telemetry, sink_path,
         serve_snap = server.metrics.snapshot()
         manager.close_all(timeout_s=60)
     report["rounds_detail"] = rounds
+    report["serve_replica_completed"] = {
+        str(r): n
+        for r, n in server.metrics.completed_by_replica().items()}
     report["mean_batch_occupancy"] = serve_snap["mean_batch_occupancy"]
     report["occupancy_histogram"] = serve_snap["occupancy_histogram"]
     report["decode_fused"] = serve_snap["decode_fused"]

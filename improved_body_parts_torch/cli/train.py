@@ -37,7 +37,9 @@ Flags, with the JAX CLI's meaning:
   next window, transient failures retry with backoff, resume is
   automatic, and ``--epochs`` is the total the run converges to;
 - ``--distill-from CKPT --teacher-config NAME --distill-alpha
-  --distill-alpha-warmup`` (``train.distill``);
+  --distill-alpha-warmup`` (``train.distill``); over more than one
+  process it is the replicated multi-rank step (every rank distils its
+  rows, the teacher on each rank);
 - multi-card (``parallel``): ``--coordinator HOST:PORT --num-processes N
   --process-id I`` start one rank a process (NCCL on the card, gloo on
   the CPU); each rank trains ``batch_size_per_device`` rows of every
@@ -61,8 +63,8 @@ time, train imgs/s, each save's blocked and writer ms, and a SHA-256 of
 the final model ``state_dict``.
 
 Refused with an error: the retired ``--input-pipeline pool``, and
-``--distill-from`` with more than one process (the distillation step runs
-on one card).
+``--distill-from`` with ``--partition`` (the distillation step runs the
+replicated rules, as the JAX CLI's does).
 """
 from __future__ import annotations
 
@@ -288,10 +290,10 @@ def resolve_args(args):
         if args.device_gt:
             _refuse("--distill-from needs host GT label maps (the blend's "
                     "supervised term); drop --device-gt")
-        if args.partition or args.num_processes > 1:
-            _refuse("--distill-from runs the single-card step (the "
-                    "student is small: that is the point); drop "
-                    "--partition and run one process")
+        if args.partition or cfg.train.partition:
+            _refuse("--distill-from runs the replicated step (the "
+                    "student is small — that is the point); drop "
+                    "--partition")
         teacher_cfg = get_config(args.teacher_config)
         if teacher_cfg.skeleton != cfg.skeleton:
             _refuse(f"teacher config '{args.teacher_config}' has a "
@@ -624,6 +626,9 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
     from ..train.supervisor import reshard_on_topology_change
 
     tr = cfg.train
+    if teacher is not None and partition_rules is not None:
+        raise ValueError("distillation runs the replicated step; pass no "
+                         "partition_rules with a teacher")
     wire = wire or tr.input_wire
     data_index, data_ranks, model_ranks = 0, 1, 1
     if mesh is not None:
@@ -707,7 +712,7 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
         if teacher is not None:
             return bind_teacher(make_distill_train_step(
                 model, teacher, cfg, opt, use_focal=use_focal,
-                health=health), teacher)
+                health=health, mesh=mesh), teacher)
         return make_train_step(model, cfg, opt, use_focal=use_focal,
                                freeze_bn=swa, device_gt=device_gt > 0,
                                health=health, mesh=mesh, rules=step_rules)

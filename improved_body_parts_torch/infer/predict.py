@@ -41,7 +41,21 @@ reads either package's buffers.  The lanes:
   around each entry's device ensemble, the mean at the original size.
 
 Host preprocessing (cubic resize to ``boxsize``, bucket padding) is the
-JAX package's, with cv2.  Not ported (ROADMAP): the spatial mesh.
+JAX package's, with cv2.
+
+``Predictor(mesh=)`` spreads one image's forward over the ranks of a
+``('data', 'model')`` mesh (``parallel.make_mesh``; every rank calls the
+same single-image lane with the same image): the flip lanes [image,
+mirror] split over ``'data'`` (1 or 2) and the padded height over
+``'model'`` (``parallel.spatial``: the row split at the network's total
+stride, a halo exchange at every convolution that pads the height, the
+SE layers' mean over the global height); the last stack's maps are
+gathered onto every rank, and the flip merge, the upsample and the decode
+run on the whole maps there, so every rank returns the same result.  The
+single-image lanes (``predict``, ``predict_fast``, ``predict_compact``,
+``predict_decoded`` and their ``_async`` forms) take a mesh; the grid
+lanes, the batch lanes and ``device_replica`` refuse it, as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -178,6 +192,12 @@ class Predictor:
     an overflow flag in the result (``DeviceDecoded.ok``).  ``fused_tta``
     picks the scale x rotation grid's fused form (one call an image)
     over the looped one (one call an entry, then the mean).
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh whose ``'data'`` axis is 1 or
+    2) height-shards each image's forward over its ranks (see the module
+    docstring); ``model`` is then a model of ``models.build_model``
+    (its ``total_stride`` is the row split's unit) and ``device`` this
+    rank's card.
     """
 
     def __init__(self, model, skeleton: SkeletonConfig,
@@ -185,9 +205,21 @@ class Predictor:
                  model_params: Optional[InferenceModelParams] = None,
                  bucket: int = 128, compact_topk: int = 64,
                  assembly_pmax: int = 32, device="cuda",
-                 fused_tta: bool = True):
+                 fused_tta: bool = True, mesh=None):
         d_params, d_model_params = default_inference_params()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import axis_sizes, check_mesh
+            from ..parallel.spatial import network_stride
+
+            check_mesh(mesh, "Predictor")
+            sizes = axis_sizes(mesh)
+            if sizes["data"] not in (1, 2):
+                raise ValueError(
+                    "the ensemble batch is 2 (image + flip): the mesh "
+                    f"'data' axis must be 1 or 2, got {sizes}")
+            self.shard_stride = network_stride(model)
         self.model = model
         self.skeleton = skeleton
         self.params = params or d_params
@@ -244,9 +276,41 @@ class Predictor:
         upsample."""
         n = imgs.shape[0]
         both = torch.cat([imgs, imgs.flip(2)], dim=0)
-        out = self.model(both)[-1][0]           # (2N, H/4, W/4, C) fp32
+        if self.mesh is None:
+            out = self.model(both)[-1][0]       # (2N, H/4, W/4, C) fp32
+        else:
+            out = self._sharded_forward(both)
         maps = self._merge_flip(out[:n], out[n:].flip(2))
         return upsample_cubic(maps, self.skeleton.stride)
+
+    def _sharded_forward(self, both: torch.Tensor) -> torch.Tensor:
+        """The last stack's scale-0 maps of the 2 lanes [image, mirror]
+        of one image over the mesh: this rank's lane (both lanes on a
+        ``'data'`` axis of 1) on its rows of the row split, the shards
+        gathered over ``'model'`` and the lanes over ``'data'``, so every
+        rank holds all of (2, H/4, W/4, C)."""
+        from ..models.layers import height_sharded
+        from ..parallel.mesh import axis_index, axis_sizes
+        from ..parallel.spatial import HeightShard, gather_lanes
+
+        if both.shape[0] != 2:
+            raise ValueError("a mesh-sharded predictor runs one image a "
+                             f"call, got {both.shape[0] // 2}")
+        sizes = axis_sizes(self.mesh)
+        if sizes["data"] == 2:
+            d = axis_index(self.mesh, "data")
+            both = both[d:d + 1]
+        if sizes["model"] == 1:
+            # one rank's shard is the whole height: the plain forward
+            out = self.model(both)[-1][0]
+        else:
+            shard = HeightShard.over(self.mesh, both.shape[1],
+                                     self.shard_stride)
+            start, end = shard.rows
+            with height_sharded(shard):
+                out = self.model(both[:, start:end])[-1][0]
+            out = shard.gather(out, dim=1)
+        return gather_lanes(out, self.mesh.get_group("data"), sizes["data"])
 
     def _records(self, maps: torch.Tensor, valid_h: torch.Tensor,
                  valid_w: torch.Tensor, thre1: float, compact_spec):
@@ -349,6 +413,10 @@ class Predictor:
         ``device`` and whose warm set starts empty (each device pays its
         own first-run costs).  ``serve.DynamicBatcher`` sends each batch
         to its least-loaded replica."""
+        if self.mesh is not None:
+            raise ValueError(
+                "device_replica replicates WHOLE devices; a mesh-sharded "
+                "predictor already spans devices")
         clone = copy.copy(self)
         clone.device = resolve_device(device)
         clone.model = copy.deepcopy(self.model).to(clone.device)
@@ -371,6 +439,7 @@ class Predictor:
         moves those costs to start-up.  Returns the number of
         (shape x batch) combinations this predictor had not run before
         (0 on a fully warm predictor)."""
+        self._refuse_mesh_batch("decode" if decode else "compact")
         prm = params or self.params
         if not trivial_grid(prm):
             raise ValueError(
@@ -392,6 +461,13 @@ class Predictor:
         return fresh
 
     # ------------------------------------------------------------------ #
+    def _refuse_mesh_batch(self, mode: str) -> None:
+        """The batch lanes run no mesh: it is meant for one giant
+        input."""
+        if self.mesh is not None:
+            raise ValueError(f"{mode}_batch does not support the spatial "
+                             "sharding mesh (meant for single giant inputs)")
+
     def _device_scope(self):
         """Makes the predictor's card current on the calling thread (the
         kernels launch on the current device), nothing on the CPU."""
@@ -536,6 +612,7 @@ class Predictor:
         image (see :meth:`_packed_batch_async` for the grouping, chunking
         and single-fetch contract); ``resolve()`` returns one
         ``DeviceDecoded`` per image, in input order."""
+        self._refuse_mesh_batch("decode")
         return self._packed_batch_async(images_bgr, thre1, params,
                                         mode="decode")
 
@@ -575,6 +652,7 @@ class Predictor:
         grouping, chunking and single-fetch contract of
         :meth:`_packed_batch_async` (the serving engine's host-pool
         lane)."""
+        self._refuse_mesh_batch("compact")
         return self._packed_batch_async(images_bgr, thre1, params,
                                         mode="compact")
 
@@ -680,6 +758,10 @@ class Predictor:
         of its own (its image uploaded again), its map kept, and a last
         call averages them in the same order.  Either way nothing is read
         back before the caller fetches the row."""
+        if self.mesh is not None:
+            raise ValueError(
+                "predict_compact_ms does not support the spatial sharding "
+                "mesh (use Predictor.predict for mesh-sharded inference)")
         if thre1 is None:
             thre1 = prm.thre1
         if fused is None:

@@ -21,6 +21,14 @@ Two numerics details carry the Flax semantics over:
   ``mean(x^2) - mean(x)^2``, reduced in float32.  ``nn.BatchNorm2d``
   would update with the unbiased variance.
 
+A forward inside :class:`height_sharded` runs on one rank's rows of a
+height split (``parallel.spatial``): each convolution that pads the
+height takes those rows from the neighbouring ranks (the stride-2 stem
+its ``SAME`` split of the global height), the SE layers take the global
+mean, and everything else (1x1 convolutions, eval-mode BN, the pools, the
+upsamples) runs unchanged on the rows it has.  Outside it the layers run
+the plain forward.
+
 Weight init matches the JAX package (reference: models/posenet.py:119-139):
 conv N(0, 0.001), dense N(0, 0.01), biases zero, BN (1, 0); the BN-free
 Associative-Embedding lineage draws its convs from N(0, 0.01)
@@ -28,6 +36,7 @@ Associative-Embedding lineage draws its convs from N(0, 0.01)
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Tuple
 
 import torch
@@ -38,6 +47,56 @@ LEAKY_SLOPE = 0.01
 CONV_STD = 0.001
 DENSE_STD = 0.01
 AE_CONV_STD = 0.01
+
+
+_SHARD = threading.local()
+
+
+def active_shard():
+    """The height shard this thread's forward runs on (a
+    ``parallel.spatial.HeightShard``), or None."""
+    return getattr(_SHARD, "shard", None)
+
+
+class height_sharded:
+    """Context in which the layers run on this thread on ``shard``'s rows
+    of a height split (``parallel.spatial.HeightShard``: its ``halo``,
+    ``mean_hw`` and ``global_height``).  A thread-local, so another
+    thread's forward (a serving replica's) stays plain."""
+
+    def __init__(self, shard):
+        self.shard = shard
+
+    def __enter__(self):
+        self.prev = active_shard()
+        _SHARD.shard = self.shard
+        return self.shard
+
+    def __exit__(self, *exc):
+        _SHARD.shard = self.prev
+        return False
+
+
+def _conv_rows(conv, x, pad_w: int):
+    """``conv`` (an ``nn.Conv2d``, or an int8 layer around one) over
+    ``x`` whose height padding is already in place: only the width pads
+    (``pad_w`` on each side)."""
+    layer = getattr(conv, "layer", conv)
+    weight = conv.dequantized() if hasattr(conv, "dequantized") \
+        else conv.weight
+    return F.conv2d(x, weight, conv.bias, layer.stride, (0, pad_w),
+                    layer.dilation, layer.groups)
+
+
+def same_conv(conv, x):
+    """``conv(x)`` for a stride-1 conv with symmetric padding; on a height
+    shard its height padding is the neighbouring ranks' rows."""
+    shard = active_shard()
+    layer = getattr(conv, "layer", conv)
+    if shard is None or layer.padding[0] == 0:
+        return conv(x)
+    p = layer.padding[0]
+    return _conv_rows(conv, shard.halo(x, p, p), layer.padding[1])
 
 
 def leaky_relu(x):
@@ -202,12 +261,21 @@ class ConvBlock(nn.Module):
 
     def forward(self, x):
         if self.stride > 1:
-            ph = same_padding(x.shape[2], self.kernel_size, self.stride,
-                              self.dilation)
-            pw = same_padding(x.shape[3], self.kernel_size, self.stride,
-                              self.dilation)
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        x = self.conv(x)
+            shard = active_shard()
+            geometry = (self.kernel_size, self.stride, self.dilation)
+            pw = same_padding(x.shape[3], *geometry)
+            if shard is None:
+                ph = same_padding(x.shape[2], *geometry)
+                x = self.conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+            else:
+                # SAME's split of the global height; a shard starts on an
+                # even row, so its outputs are the global ones
+                ph = same_padding(shard.global_height(x.shape[2]),
+                                  *geometry)
+                x = _conv_rows(self.conv, F.pad(shard.halo(x, *ph),
+                                                (pw[0], pw[1])), 0)
+        else:
+            x = same_conv(self.conv, x)
         if self.bn is not None:
             x = self.bn(x)
         if not self.relu:
@@ -238,7 +306,7 @@ class Residual(nn.Module):
 
     def forward(self, x):
         y = leaky_relu(self.bn1(self.conv1(x)))
-        y = leaky_relu(self.bn2(self.conv2(y)))
+        y = leaky_relu(self.bn2(same_conv(self.conv2, y)))
         y = self.bn3(self.conv3(y))
         if self.skip_conv is not None:
             x = self.skip_bn(self.skip_conv(x))
@@ -258,7 +326,8 @@ class SELayer(nn.Module):
         self.fc2 = nn.Linear(channels // reduction, channels)
 
     def forward(self, x):
-        y = x.mean(dim=(2, 3))
+        shard = active_shard()
+        y = x.mean(dim=(2, 3)) if shard is None else shard.mean_hw(x)
         y = torch.sigmoid(self.fc2(leaky_relu(self.fc1(y))))
         return x * y[:, :, None, None]
 
@@ -428,12 +497,11 @@ class HourglassAE(nn.Module):
         self.low3 = conv(nf, features)
 
     def forward(self, x):
-        up1 = F.relu(self.up1(x))
-        low1 = F.relu(self.low1(max_pool_2x2(x)))
-        low2 = self.low2(low1)
-        if not self.nested:
-            low2 = F.relu(low2)
-        return up1 + upsample_nearest_2x(F.relu(self.low3(low2)))
+        up1 = F.relu(same_conv(self.up1, x))
+        low1 = F.relu(same_conv(self.low1, max_pool_2x2(x)))
+        low2 = (self.low2(low1) if self.nested
+                else F.relu(same_conv(self.low2, low1)))
+        return up1 + upsample_nearest_2x(F.relu(same_conv(self.low3, low2)))
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

@@ -115,7 +115,9 @@ class _StackedNet(nn.Module):
     storage; int8 storage keeps biases and norms fp32), bf16 autocast when
     built so, the subclass's ``stacks(x)`` (NCHW features in,
     ``[nstack][nscale]`` NCHW predictions out), and NHWC fp32 predictions
-    out."""
+    out.  A subclass sets ``total_stride``, the input rows of one bottom
+    row (4 x 2^hourglass_depth): the unit a height split deals out
+    (``parallel.spatial``)."""
 
     compute_dtype = torch.float32
 
@@ -168,6 +170,7 @@ class PoseNet(_StackedNet):
         nscale = hourglass_depth + 1
         widths = [inp_dim + j * increase for j in range(nscale)]
         self.nstack = nstack
+        self.total_stride = 4 * 2 ** hourglass_depth
         self.remat = remat
         self.cross_stack_residual = cross_stack_residual
         self.compute_dtype = compute_dtype
@@ -216,6 +219,7 @@ class _AttendedNet(_StackedNet):
         nscale = hourglass_depth + 1
         widths = [inp_dim + j * increase for j in range(nscale)]
         self.nstack = nstack
+        self.total_stride = 4 * 2 ** hourglass_depth
         self.compute_dtype = compute_dtype
         self.backbone = backbone
         self.hourglasses = nn.ModuleList(
@@ -303,6 +307,7 @@ class PoseNetAE(_StackedNet):
         super().__init__()
         block = dict(use_bn=False, activation="relu", init_std=AE_CONV_STD)
         self.nstack = nstack
+        self.total_stride = 4 * 2 ** hourglass_depth
         self.compute_dtype = compute_dtype
         self.backbone = ConvStem(inp_dim, **block)
         self.hourglasses = nn.ModuleList(

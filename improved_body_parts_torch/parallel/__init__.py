@@ -1,7 +1,8 @@
-"""Multi-card training of the port: process groups and the
+"""Multi-card training and inference of the port: process groups and the
 ``('data', 'model')`` mesh with the device-topology stamp (``mesh``), the
 partition rules (``partition``), the storage of a partitioned train state
-(``sharded``) and the host→device input placement (``device_prefetch``)."""
+(``sharded``), the height split of inference (``spatial``) and the
+host→device input placement (``device_prefetch``)."""
 from .mesh import (
     barrier,
     initialize_distributed,

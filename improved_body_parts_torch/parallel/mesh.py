@@ -306,12 +306,22 @@ def reshard_replicated(state):
     return state
 
 
-def shard_batch(batch, mesh):
+def shard_batch(batch, mesh, spatial_shard: bool = False,
+                stride: Optional[int] = None):
     """This rank's rows of a global batch (a tuple of arrays or tensors
     with the batch first): the ``data`` coordinate's contiguous slab, so
-    the slabs of the ranks in rank order reassemble the global batch."""
+    the slabs of the ranks in rank order reassemble the global batch.
+
+    ``spatial_shard=True`` also cuts the height (axis 1) over
+    ``'model'``, as the JAX package's ``P('data', 'model', None, None)``:
+    this rank's rows of the row split at the network's total ``stride``
+    (``parallel.spatial.split_units``; required then), every array cut at
+    the same bottom rows."""
     sizes = axis_sizes(mesh)
     d, D = axis_index(mesh, "data"), sizes["data"]
+    if spatial_shard and stride is None:
+        raise ValueError("shard_batch(spatial_shard=True) needs the "
+                         "network's total stride (the row split's unit)")
     out = []
     for x in batch:
         n = x.shape[0]
@@ -319,4 +329,8 @@ def shard_batch(batch, mesh):
             raise ValueError(f"a batch of {n} rows does not split over "
                              f"{D} data ranks")
         out.append(x[d * n // D:(d + 1) * n // D])
+    if spatial_shard:
+        from .spatial import spatial_rows
+
+        return spatial_rows(out, mesh, stride)
     return tuple(out)

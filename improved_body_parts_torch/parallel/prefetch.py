@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -28,7 +28,8 @@ from ..obs.trace import get_tracer
 
 def device_prefetch(batches: Iterable, device, depth: int = 2,
                     spatial_shard: bool = False,
-                    phase_stats=None) -> Iterator:
+                    phase_stats=None, stride: Optional[int] = None
+                    ) -> Iterator:
     """Yield each batch of ``batches`` (tuples of host arrays) as a tuple
     of tensors on ``device``, copied ``depth`` batches ahead.
 
@@ -45,16 +46,20 @@ def device_prefetch(batches: Iterable, device, depth: int = 2,
 
     ``device`` may be a mesh (``parallel.make_mesh``): each rank's batch
     (its host shard of the global batch) goes to the card that rank
-    drives.  ``spatial_shard`` (a height split over ``'model'``, which
-    needs a halo exchange) is not ported and accepts only its default."""
-    if spatial_shard:
-        raise NotImplementedError(
-            "device_prefetch: spatial_shard is not ported yet "
-            "(ROADMAP.md, queue 1: a halo-exchanging height shard)")
+    drives.  ``spatial_shard=True`` (a mesh only) sends the card this
+    rank's height shard of it instead: its ``'model'`` rows of the row
+    split at the network's total ``stride`` (``parallel.spatial``), cut
+    on the host before the copy."""
     from .mesh import is_mesh, rank_device
 
-    if is_mesh(device):
-        device = rank_device(device.device_type)
+    mesh = device if is_mesh(device) else None
+    if spatial_shard and (mesh is None or stride is None):
+        raise ValueError("device_prefetch: spatial_shard=True splits the "
+                         "height over a mesh's 'model' axis at the "
+                         "network's total stride; pass a mesh "
+                         "(parallel.make_mesh) as the device and stride=")
+    if mesh is not None:
+        device = rank_device(mesh.device_type)
     device = torch.device(device)
     if device.type == "cuda":
         place = _CudaPlacer(device)
@@ -62,6 +67,13 @@ def device_prefetch(batches: Iterable, device, depth: int = 2,
         place = _cpu_place
     else:
         raise ValueError(f"unsupported device {device}")
+    if spatial_shard:
+        from .spatial import spatial_rows
+
+        whole = place
+
+        def place(batch):
+            return whole(spatial_rows(batch, mesh, stride))
     it = _device_prefetch(batches, place, depth)
     if phase_stats is not None:
         return phase_stats.attribute(it)

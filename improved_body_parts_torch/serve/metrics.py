@@ -142,6 +142,13 @@ class ServeMetrics:
                 self.hops[hop].update(d)
                 per[hop].update(d)
 
+    def completed_by_replica(self) -> Dict[int, int]:
+        """Requests completed on each replica (those whose hops were
+        recorded), by replica index."""
+        with self._lock:
+            return {r: per[HOPS[0]].count
+                    for r, per in sorted(self._hops_by_replica.items())}
+
     def on_complete(self, latency_s: float) -> None:
         with self._lock:
             self.completed += 1

@@ -17,6 +17,16 @@ the supervised step's (``train.step.apply_guarded_update``).  Wired
 through ``cli.train --distill-from <teacher checkpoint> --teacher-config
 <name>``; ``bind_teacher`` gives the step the loop's ``(state, *batch)``
 form.
+
+Under a mesh (``make_distill_train_step(mesh=)``, the ``replicated``
+rules only: the JAX package refuses partitioned distillation) every rank
+runs the step on its rows of the global batch, and the step is the
+single-process step on that batch within rounding, through the
+supervised step's multi-rank machinery (``train.step._Ranks``): the
+student's train-mode BN normalises with the global batch's statistics,
+its gradients are averaged over the ranks under DDP, and the loss the
+guard reads is the global batch's.  The teacher runs eval-mode on each
+rank's own rows.
 """
 from __future__ import annotations
 
@@ -29,8 +39,13 @@ from torch import nn
 from ..config import Config
 from ..ops.losses import multi_task_loss
 from .state import ScheduledSGD, TrainState
-from .step import _bn_buffers, apply_guarded_update, normalize_images, \
-    to_device
+from .step import (
+    _bn_buffers,
+    _Ranks,
+    apply_guarded_update,
+    normalize_images,
+    to_device,
+)
 
 
 def distill_alpha(config: Config, step: int) -> float:
@@ -50,15 +65,23 @@ def distill_alpha(config: Config, step: int) -> float:
 def make_distill_train_step(student: nn.Module, teacher: nn.Module,
                             config: Config, optimizer: ScheduledSGD,
                             use_focal: bool = True,
-                            health: bool = False) -> Callable:
+                            health: bool = False, mesh=None) -> Callable:
     """Build ``step(state, teacher, images, mask_miss, gt) -> (state,
     loss)`` (``(state, loss, grad_norm)`` with ``health``), which updates
     the student's ``state`` in place.  ``config`` is the student's: it
     owns the loss weights, the alpha schedule and the divergence policy.
     The teacher may differ in width and stacks; its skeleton must match
     (the distill target is its last-stack scale-0 map, on the student's
-    grid)."""
+    grid).  ``mesh`` (``parallel.make_mesh``) makes it the multi-rank
+    step of the ``replicated`` rules: every rank calls it with its rows
+    of the global batch and gets the global batch's loss."""
     dev = next(student.parameters()).device
+    ranks = None
+    if mesh is not None:
+        from ..parallel.partition import get_ruleset
+
+        ranks = _Ranks(student, optimizer, config, mesh,
+                       get_ruleset("replicated"), None)
 
     def distill_step(state: TrainState, teacher_model: nn.Module, images,
                      mask_miss, gt):
@@ -74,15 +97,20 @@ def make_distill_train_step(student: nn.Module, teacher: nn.Module,
         alpha = distill_alpha(config, state.step)
         student.train()
         optimizer.sgd.zero_grad(set_to_none=True)
-        preds = student(images)
+        preds = (student if ranks is None else ranks.forward)(images)
         loss_gt = multi_task_loss(preds, gt, mask_miss, config,
                                   use_focal=use_focal)
         loss_kd = multi_task_loss(preds, target, mask_miss, config,
                                   use_focal=use_focal)
         loss = alpha * loss_gt + (1.0 - alpha) * loss_kd
-        loss.backward()
-        return apply_guarded_update(state, loss.detach(), bn_before, config,
-                                    health)
+        if ranks is None:
+            loss.backward()
+            return apply_guarded_update(state, loss.detach(), bn_before,
+                                        config, health)
+        (loss * ranks.backward_scale).backward()
+        return apply_guarded_update(state, ranks.global_loss(loss.detach()),
+                                    bn_before, config, health,
+                                    grad_norm=ranks.grad_norm)
 
     return distill_step
 

@@ -235,7 +235,7 @@ def test_prefetch_early_abandon_stops_producer_and_refuses_options():
     alive = [t for t in threading.enumerate()
              if t.name == "device-prefetch" and t.is_alive()]
     assert not alive, "producer thread still running after close()"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pass a mesh"):
         device_prefetch(_host_batches(1), "cpu", spatial_shard=True)
     # phase_stats is ported: it attributes the consumer's wall clock
     from improved_body_parts_torch.obs import Registry, StepPhases

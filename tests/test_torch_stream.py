@@ -420,3 +420,50 @@ def test_pool_replica_stopped_mid_stream_loses_no_frame(stub_preds):
         m = pool.metrics
         assert m.submitted == m.completed + m.failed + m.depth
         assert session.close(timeout_s=60)
+
+
+# ------------------------------------------- cli.stream_bench --devices
+def test_stream_bench_serves_across_two_cpu_replicas(tmp_path, monkeypatch):
+    """``--devices 2 --device cpu``: the batcher serves across two
+    ``Predictor.device_replica`` copies (the JAX tool's virtual host
+    devices), both of them serving, and the artifact says so."""
+    from improved_body_parts_torch.cli import stream_bench as tbench
+
+    monkeypatch.chdir(tmp_path)
+    report = tbench.main(["--config", "tiny", "--streams", "2", "--frames",
+                          "8", "--size", "96", "--boxsize", "96",
+                          "--rounds", "1", "--max-batch", "2",
+                          "--devices", "2", "--telemetry-sink", "none",
+                          "--device", "cpu"])
+    assert report["serve_devices"] == 2
+    done = report["serve_replica_completed"]
+    assert sorted(done) == ["0", "1"] and min(done.values()) > 0, done
+    assert report["frames_delivered_total"] == 16
+    assert report["frames_failed_total"] == 0
+
+
+@pytest.mark.parametrize("count,device,visible,want", [
+    (0, "cpu", 0, ["cpu"]),
+    (3, "cpu", 0, ["cpu"] * 3),
+    (0, "cuda", 2, ["cuda:0", "cuda:1"]),
+    (1, "cuda", 2, ["cuda:0"]),
+])
+def test_stream_bench_devices_resolve(monkeypatch, count, device, visible,
+                                      want):
+    import torch
+
+    from improved_body_parts_torch.cli.stream_bench import serve_devices
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    got = serve_devices(count, torch.device(device))
+    assert [str(d) for d in got] == want
+
+
+def test_stream_bench_refuses_more_cards_than_visible(monkeypatch):
+    import torch
+
+    from improved_body_parts_torch.cli.stream_bench import serve_devices
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--devices 99: only 1 CUDA"):
+        serve_devices(99, torch.device("cuda"))

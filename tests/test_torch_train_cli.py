@@ -190,6 +190,8 @@ def test_swa_stage_cli_on_a_workdir(corpus, tmp_path):
     (["--supervised", "--swa"], "SWA stage unsupervised"),
     (["--distill-from", "x", "--teacher-config", "tiny", "--device-gt",
       "4"], "--device-gt"),
+    (["--distill-from", "x", "--teacher-config", "tiny", "--partition"],
+     "replicated step .* drop --partition"),
 ])
 def test_unported_and_conflicting_flags_are_refused(argv, match):
     with pytest.raises(SystemExit, match=match):

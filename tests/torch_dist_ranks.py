@@ -1,6 +1,7 @@
-"""Rank bodies for ``test_torch_dist.py``: each runs in a spawned process
-of a gloo group and reports to the parent through a queue.  A module of
-its own (not a test file), so a rank imports torch and the port only."""
+"""Rank bodies for ``test_torch_dist.py`` and ``test_torch_distill.py``:
+each runs in a spawned process of a gloo group and reports to the parent
+through a queue.  A module of its own (not a test file), so a rank
+imports torch and the port only."""
 import os
 
 
@@ -140,6 +141,68 @@ def two_rank_checks(rank, port, payload, out):
             res["resume_refuse"] = None
         except TopologyChanged as e:
             res["resume_refuse"] = str(e)
+        out.put((rank, res))
+        shutdown_distributed()
+    except BaseException as e:
+        out.put((rank, {"error": f"{type(e).__name__}: {e}"}))
+        raise
+
+
+def distill_states(cfg, teacher_cfg, student_sd, teacher_sd):
+    """(student state, teacher) in float64 from numpy state dicts."""
+    import torch
+
+    from improved_body_parts_torch.models import build_model
+
+    state = _state(cfg, student_sd)
+    teacher = build_model(teacher_cfg, device="cpu").to(torch.float64)
+    teacher.load_state_dict({k: torch.from_numpy(v)
+                             for k, v in teacher_sd.items()})
+    return state, teacher.eval()
+
+
+def distill_two_ranks(rank, port, payload, out):
+    """The multi-rank distillation step on a (2, 1) mesh: each rank
+    distils its rows of every global batch; reports each step's loss
+    and grad norm, the state after the first step and after the last
+    (rank 0), and the teacher's digest."""
+    try:
+        import torch
+
+        torch.set_num_threads(1)
+        from improved_body_parts_torch.cli.train import state_digest
+        from improved_body_parts_torch.parallel import (
+            initialize_distributed,
+            make_mesh,
+            shard_batch,
+            shutdown_distributed,
+        )
+        from improved_body_parts_torch.train import (
+            bind_teacher,
+            make_distill_train_step,
+        )
+
+        initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cpu")
+        mesh = make_mesh(2, 1, device="cpu")
+        state, teacher = distill_states(
+            payload["cfg"], payload["teacher_cfg"], payload["student"],
+            payload["teacher"])
+        digest = state_digest(teacher.state_dict())
+        step = bind_teacher(make_distill_train_step(
+            state.model, teacher, payload["cfg"], state.optimizer,
+            health=True, mesh=mesh), teacher)
+        steps, first = [], None
+        for batch in payload["batches"]:
+            state, loss, gnorm = step(state, *shard_batch(batch, mesh))
+            steps.append((float(loss), float(gnorm)))
+            if first is None and rank == 0:
+                first = _full(state)
+        res = {"steps": steps,
+               "teacher_unchanged": state_digest(teacher.state_dict())
+               == digest,
+               "state_sha": state_digest(state.model.state_dict())}
+        if rank == 0:
+            res.update(first=first, state=_full(state))
         out.put((rank, res))
         shutdown_distributed()
     except BaseException as e:
