@@ -2,8 +2,8 @@
 """Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
 learn->AP loop, the accuracy tiers of inference, serving beyond one
 batcher (replica pool, cascade, process router), live video streams
-with the run telemetry, multi-card training and height-sharded
-inference.
+with the run telemetry, multi-card training, height-sharded inference
+and the tools that measure the port.
 
     python3 chip_smoke.py
 
@@ -294,6 +294,31 @@ released before phase 6, so phase 6's peak memory is its own;
    with its maps within 1e-3 x max.  (d) ``cli.stream_bench --devices
    1``: 2 streams x 8 frames on phase 7's checkpoint, ``serve_devices``
    1, every frame delivered.
+14. the tools that measure the port, each ``main(argv)`` in this process
+   at full width (``canonical``, seeded, 512x512), with TF32 off (the
+   script turns it off at its start): (a) ``cli.speed_test`` at batch 8,
+   20 timed calls, bf16 autocast and ``--fp32``; (b) ``cli.perf_audit
+   --batches 1 8 --iters 10 --repeats 3``: no implied rate above the
+   data-sheet peak, the ``FlopCounterMode`` count equal to the analytic
+   conv + dense count, the profiler's device ms measured and no more than
+   a dispatch's wall ms, the batch-8 chained FPS and its ``vs_baseline``
+   printed; (c) ``cli.train_bench --batches 2 4 8 --steps 5 --repeats
+   2``: 5 + 5 focal launches a step, the device ms a step no more than
+   the step's ms, the focal kernels held to their plain versions on the
+   first step's 5 calls with phase 7's tolerances; (d) ``cli.e2e_bench
+   --images 8 --planted 3 --batch 8`` over every mode: each mode's people
+   within 1 px of the host decode of the planted maps alone, resized as
+   the mode's protocol resizes them (the lanes' x4 upsample; the
+   full-map protocol's resize to the image), the three decode kernels
+   bit for bit on the device-decode batch's captured maps,
+   ``device_decode_host_fallback`` printed; then ``--images 2 --planted
+   2 --batch 2``: each mode's people within 1 px of the planted joints;
+   (e) ``cli.serve_bench --sizes 512 --requests 4 --clients 1,4
+   --baseline-clients 4 --rounds 1 --planted 2`` (the sequential arms at
+   the batcher's peak load) (``hop_conservation_frac`` >= 0.95 on every
+   arm), then ``--proc-only --proc-rounds 1`` (every future of the chaos
+   arm resolved, the SIGKILLed worker respawned).  Its rates prove the
+   tools run; at these request counts they are not baselines.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -304,7 +329,8 @@ and ``swa``, phase 10's as ``pool``, ``cascade`` and
 ``router_stopped_workers`` (the killed worker generation left out),
 phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
 ``telemetry``, phase 12(a)'s as ``multi_card``, phase 13(b)'s rank 0 as
-``spatial`` and ``distill_multi_rank``; the focal kernels' device ms a
+``spatial`` and ``distill_multi_rank``, phase 14's as ``train_bench``,
+``e2e_bench`` and ``serve_bench``; the focal kernels' device ms a
 step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
@@ -417,40 +443,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
               windows: int = 3, required: bool = True):
     """Device time of ``fn()`` apart from the host work around it:
-    ``torch.profiler`` over ``calls`` back-to-back calls, the CUDA time of
-    each kernel named in ``kernels`` (the ``__global__`` names of one
-    source) over the launches recorded, times ``launches_a_call``.
-    Returns {kernel: ms a call}.  The profiler can drop the first kernel
-    of its window, so a marker kernel runs first; now and then it records
-    no device activity at all in a window, so a window that misses a
-    kernel is profiled again, up to ``windows`` times, and the
-    measurement fails only when every window missed it -- or, with
-    ``required=False`` (a time the kernels line does not carry), gives
-    None for that kernel: not measured."""
+    ``utils.profiling.device_window`` over ``calls`` back-to-back calls,
+    the CUDA time of each kernel named in ``kernels`` (the ``__global__``
+    names of one source) over the launches recorded, times
+    ``launches_a_call``.  Returns {kernel: ms a call}.  The profiler can
+    drop a kernel at its window's start (the mean is over the launches it
+    kept); now and then it records no device activity at all in a
+    window, so a window that misses a kernel is profiled again, up to
+    ``windows`` times, and the measurement fails only when every window
+    missed it -- or, with ``required=False`` (a time the kernels line
+    does not carry), gives None for that kernel: not measured."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from improved_body_parts_torch.utils.profiling import device_window
 
     fn()
     torch.cuda.synchronize()
     pats = {k: re.compile(rf"(^|\W){k}($|\W)") for k in kernels}
     for window in range(1, windows + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device="cuda")
-            torch.cuda.synchronize()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        activity = device_window(fn, calls).activity
         us = dict.fromkeys(kernels, 0.0)
         seen = dict.fromkeys(kernels, 0)
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
+        for name, (ns, n) in activity.items():
             for k, pat in pats.items():
-                if pat.search(e.name):
-                    us[k] += e.time_range.elapsed_us()
-                    seen[k] += 1
+                if pat.search(name):
+                    us[k] += ns / 1e3
+                    seen[k] += n
         missed = [k for k in kernels if seen[k] == 0]
         if not missed:
             return {k: us[k] / seen[k] * launches_a_call / 1e3
@@ -1028,8 +1046,6 @@ def train_full_width(cfg, dev, smi):
     what phase 9 reuses: the drawn records and the sync pipeline's step
     ms, host data ms a batch, imgs/s and bytes a batch."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from improved_body_parts_torch.data import MemoryDataset, batches
     from improved_body_parts_torch.data.fixture import _synth_image
@@ -1047,6 +1063,7 @@ def train_full_width(cfg, dev, smi):
         train_epoch,
     )
     from improved_body_parts_torch.train.step import to_device
+    from improved_body_parts_torch.utils.profiling import device_window
 
     sk, tr = cfg.skeleton, cfg.train
     bs, warm_steps, steps = tr.batch_size_per_device, 2, 10
@@ -1166,18 +1183,13 @@ def train_full_width(cfg, dev, smi):
                           dev)
     b2b_ms = cuda_ms(lambda: step(state, *dev_batch), 3)
     prof_steps = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(prof_steps):
-            step(state, *dev_batch)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
+    window = device_window(lambda: step(state, *dev_batch), prof_steps,
+                           cpu=True)
+    prof_s = window.wall_s
     groups = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            g = kernel_group(e.name)
-            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+    for name, (ns, _) in window.activity.items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ns / 1e3
     busy_ms = sum(groups.values()) / 1e3 / prof_steps
     print(f"[6 training] one step on a device batch, back to back: "
           f"{b2b_ms:.2f} ms (CUDA events) [{smi}]")
@@ -1192,7 +1204,8 @@ def train_full_width(cfg, dev, smi):
               f"{busy_ms:.2f} ms a step of {1e3 * prof_s / prof_steps:.2f} "
               f"ms wall (device busy {busy_ms * prof_steps / 1e3 / prof_s:.1%}"
               f"); by group, ms a step: {split} [{smi}]")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host = sorted(window.prof.key_averages(),
+                  key=lambda e: -e.self_cpu_time_total)
     print("[6 training] host, self CPU ms a step under the profiler (calls "
           "a step): " + ", ".join(
               f"{e.key} {e.self_cpu_time_total / 1e3 / prof_steps:.2f} "
@@ -3765,31 +3778,20 @@ def p12_batch(records, cfg, rows: int, seed: int):
 def busy_share(step, state, dev_batch, steps: int = 2):
     """(device busy share, kernel ms a step, wall ms a step, the kernel
     groups taking most device time) of ``steps`` back-to-back steps under
-    ``torch.profiler``; None for the first two when the profiler records
-    no kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``utils.profiling.device_window`` (user annotations, such as DDP's
+    forward range, are not counted as device time); None for the first
+    two when the profiler records no kernel."""
+    from improved_body_parts_torch.utils.profiling import device_window
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(state, *dev_batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    window = device_window(lambda: step(state, *dev_batch), steps)
+    wall = window.wall_s
     groups, other = {}, {}
-    for e in prof.events():
-        # a range a module records (DDP's forward) shows on the device's
-        # track as a user annotation over its kernels: not a kernel
-        if e.device_type == DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            g = kernel_group(e.name)
-            t = e.time_range.elapsed_us()
-            groups[g] = groups.get(g, 0.0) + t
-            if g == "other":
-                other[e.name[:60]] = other.get(e.name[:60], 0.0) + t
+    for name, (ns, _) in window.activity.items():
+        g = kernel_group(name)
+        t = ns / 1e3
+        groups[g] = groups.get(g, 0.0) + t
+        if g == "other":
+            other[name[:60]] = other.get(name[:60], 0.0) + t
     us = sum(groups.values())
     top = ", ".join(f"{g} {t / 1e3 / steps:.2f}" for g, t in sorted(
         groups.items(), key=lambda kv: -kv[1])[:4])
@@ -4871,6 +4873,283 @@ def height_sharded_inference(dev, smi, ctx, sync, work):
             "distill_multi_rank": two[0]["distill"]["launches"]}
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the tools that measure the port                              #
+# --------------------------------------------------------------------- #
+# each tool's main(argv) at full width: ``canonical``, seeded, 512x512
+P14_CONFIG, P14_SIZE = "canonical", 512
+
+
+def measure_tools(dev, smi, work):
+    """Phase 14: the five measuring tools of ``cli`` in this process on
+    the card.  (a) ``speed_test`` at batch 8, bf16 and ``--fp32``; (b)
+    ``perf_audit`` at batches 1 and 8 (no flag, the FLOP count equal to
+    the analytic count, the device ms measured and no more than the
+    dispatch's wall ms); (c) ``train_bench`` over batches 2, 4, 8 (5 + 5
+    focal launches a step, the device ms a step no more than the step's
+    ms; the focal kernels held to their plain versions on the first
+    step's 5 calls); (d) ``e2e_bench`` over every mode on 8 images with 3
+    planted people (each mode's people within 1 px of what the host
+    decode reads off the planted maps alone as that mode's protocol
+    resizes them; the decode kernels bit for bit on the device-decode
+    batch's maps), then on 2 images with 2 planted people (each mode's
+    people within 1 px of the planted joints); (e) ``serve_bench`` at 1
+    and 4 clients (``hop_conservation_frac`` >= 0.95), then
+    ``--proc-only`` (every chaos future resolved, the killed worker
+    respawned).  Returns the launches of (c)-(e) by path."""
+    import torch
+
+    from improved_body_parts_torch.cli import (
+        e2e_bench,
+        perf_audit,
+        serve_bench,
+        speed_test,
+        train_bench,
+    )
+    from improved_body_parts_torch.config import (
+        default_inference_params,
+        get_config,
+    )
+    from improved_body_parts_torch.infer import Predictor, decode
+    from improved_body_parts_torch.infer.resize import upsample_cubic
+    from improved_body_parts_torch.ops import losses
+
+    t0 = time.perf_counter()
+    marks = []
+    cfg = get_config(P14_CONFIG)
+    sk = cfg.skeleton
+    base = ["--config", P14_CONFIG, "--device", dev.type]
+    out = os.path.join(work, "p14")
+    os.makedirs(out, exist_ok=True)
+
+    # (a) network FPS, bf16 autocast and fp32
+    rates = {}
+    for label, extra in (("bf16", []), ("fp32", ["--fp32"])):
+        rates[label] = speed_test.main(base + [
+            "--batch", "8", "--size", str(P14_SIZE), "--iters", "20",
+            *extra])
+        check(np.isfinite(rates[label]["imgs_per_sec"])
+              and rates[label]["imgs_per_sec"] > 0,
+              f"14a speed_test {label}: {rates[label]}")
+    print(f"[14a speed_test] batch 8 at {P14_SIZE}^2: bf16 "
+          f"{rates['bf16']['imgs_per_sec']:.2f} imgs/s "
+          f"({rates['bf16']['ms_per_iter']:.2f} ms a batch), fp32 "
+          f"{rates['fp32']['imgs_per_sec']:.2f} imgs/s "
+          f"({rates['fp32']['ms_per_iter']:.2f} ms; cuDNN TF32 "
+          f"{rates['fp32']['precision']['cudnn_allow_tf32']}) [{smi}]")
+    marks.append(("a", time.perf_counter()))
+
+    # (b) the audited FPS beside the FLOPs, a bytes floor and device ms
+    audit = perf_audit.main(base + [
+        "--size", str(P14_SIZE), "--batches", "1", "8", "--iters", "10",
+        "--repeats", "3",
+        "--out", os.path.join(out, "perf_audit_torch.json")])
+    for b, e in audit["batches"].items():
+        check(e["flags"] == [], f"14b perf_audit batch {b}: {e['flags']}")
+        check(e["flops_per_step"] == e["analytic_flops_per_step"],
+              f"14b perf_audit batch {b}: FlopCounterMode "
+              f"{e['flops_per_step']} != analytic "
+              f"{e['analytic_flops_per_step']}")
+        check(e["device_ms"] is not None and e["device_ms"] > 0,
+              f"14b perf_audit batch {b}: device ms not measured")
+        wall_ms = statistics.median(e["repeat_spread_ms"])
+        check(e["device_ms"] <= wall_ms, f"14b perf_audit batch {b}: "
+              f"device {e['device_ms']:.3f} ms a forward above its "
+              f"{wall_ms} ms a dispatch")
+        print(f"[14b perf_audit] batch {b}: {e['throughput_fps_median']} "
+              f"imgs/s median ({e['repeat_spread_ms']} ms a dispatch), "
+              f"chained {e['chained_fps']} imgs/s "
+              f"({e['chained_latency_ms']} ms), device "
+              f"{e['device_ms']:.3f} ms a forward "
+              f"({e['device_kernels_per_step']:.0f} kernels, "
+              f"{e['launch_calls_per_step']:.0f} launch calls), "
+              f"{e['flops_per_step']} FLOPs (= analytic), >= "
+              f"{e['min_gbytes_per_step']} GB, implied "
+              f"{e['implied_tflops']} TFLOP/s against the data sheet's "
+              f"{audit['peak_tflops']}" + (
+                  f"; vs_baseline {e['vs_baseline']} (chained / 38.5)"
+                  if "vs_baseline" in e else "") + f" [{smi}]")
+    marks.append(("b", time.perf_counter()))
+
+    # (c) the train step over the batch sweep; the focal kernels held on
+    # the first step's calls
+    focal_calls = []
+    fused = losses.focal_l2_fused
+    reset_focal()
+    losses.focal_l2_fused = first_calls(fused, 5, focal_calls)
+    try:
+        bench = train_bench.main(base + [
+            "--size", str(P14_SIZE), "--batches", "2", "4", "8",
+            "--steps", "5", "--repeats", "2",
+            "--out", os.path.join(out, "train_bench_torch.json")])
+    finally:
+        losses.focal_l2_fused = fused
+    train_launches = focal_counts()
+    for b, e in bench["batches"].items():
+        check(e["device_ms_per_step"] is not None
+              and 0 < e["device_ms_per_step"] <= e["step_ms_median"],
+              f"14c train_bench batch {b}: device "
+              f"{e['device_ms_per_step']} ms a step against a "
+              f"{e['step_ms_median']} ms step")
+        check(e["focal_fwd_launches_per_step"] == 5
+              and e["focal_bwd_launches_per_step"] == 5,
+              f"14c train_bench batch {b}: focal launches a step "
+              f"{e['focal_fwd_launches_per_step']} + "
+              f"{e['focal_bwd_launches_per_step']}, expected 5 + 5")
+        busy = ("not measured" if e["device_busy_share"] is None
+                else f"{e['device_ms_per_step']:.2f} ms "
+                f"({e['device_busy_share']:.1%})")
+        launch = e["cuda_launch_kernel_per_step"]
+        print(f"[14c train_bench] batch {b}: {e['step_ms_median']} ms a "
+              f"step ({e['repeat_spread_ms']}), {e['imgs_per_sec']} imgs/s, "
+              f"device busy {busy}, "
+              f"{'not measured' if launch is None else f'{launch:.0f}'} "
+              f"cudaLaunchKernel a step, {e['gflops_per_step']} GFLOP a "
+              f"step -> {e['implied_tflops']} TFLOP/s [{smi}]")
+    check(len(focal_calls) == 5, f"14c: captured {len(focal_calls)} focal "
+          "calls")
+    hold_focal(focal_calls,
+               torch.tensor(cfg.train.nstack_weight, device=dev) * 0.25,
+               "train_bench's first step at batch 2", tag="[14c train_bench]")
+    marks.append(("c", time.perf_counter()))
+
+    # (d) forward + decode to skeletons in every mode, planted people
+    lane_calls = []
+    decode_maps = Predictor.decode_maps
+
+    def capture(self, maps, *rest):
+        if not lane_calls and maps.shape[0] == 8:
+            lane_calls.append((maps.detach().clone(), *rest))
+        return decode_maps(self, maps, *rest)
+
+    decoded = {}
+    reset_launches()
+    Predictor.decode_maps = capture
+    try:
+        e2e = e2e_bench.main(base + [
+            "--size", str(P14_SIZE), "--images", "8", "--planted", "3",
+            "--batch", "8",
+            "--out", os.path.join(out, "e2e_bench_torch.json")],
+            decoded=decoded)
+    finally:
+        Predictor.decode_maps = decode_maps
+    e2e_launches = read_launches()
+    # what the host decode reads off the planted maps alone, as each
+    # protocol resizes them: at the lanes' x4 upsample (scaled back), and
+    # resized to the image for the full-map protocol.  The JAX tool lays
+    # its people out at random; where they overlap, greedy assembly pairs
+    # limbs across people by the reference's rules, so a mode is held to
+    # its own protocol's reading of the ground truth
+    import cv2
+
+    params, mp = default_inference_params()
+    g = mp.boxsize // sk.stride
+    up = upsample_cubic(torch.from_numpy(
+        decoded["planted_maps"][:g, :g]).to(dev)[None], sk.stride)[0]
+    up = up.cpu().numpy()
+    scale = P14_SIZE / mp.boxsize
+    at_image = cv2.resize(up, (P14_SIZE, P14_SIZE),
+                          interpolation=cv2.INTER_CUBIC)
+    reads = {"lane": decode(up[..., sk.paf_layers:], up[..., :sk.paf_layers],
+                            params, sk, coord_scale=(scale, scale)),
+             "image": decode(at_image[..., sk.paf_layers:],
+                             at_image[..., :sk.paf_layers], params, sk)}
+    planted = {k: e2e_bench.planted_gap(sk, r, decoded["planted_joints"])
+               for k, r in reads.items()}
+    gaps = {}
+    for mode in e2e_bench.MODES:
+        check(len(decoded.get(mode, ())) == 8, f"14d e2e_bench: mode "
+              f"{mode} decoded {len(decoded.get(mode, ()))} of 8 images")
+        read = reads["image" if mode == "full" else "lane"]
+        gaps[mode] = max(people_gap(people, read)
+                         for people in decoded[mode])
+        check(gaps[mode] <= 1.0, f"14d e2e_bench {mode}: the people off "
+              f"by {gaps[mode]:.3f} px from the planted maps' reading")
+    check(len(lane_calls) == 1, "14d: no device-decode batch of 8 captured")
+    hold_lane_call(sk, lane_calls[0], "e2e_bench's device-decode batch",
+                   smi, tag="[14d e2e_bench]")
+    print(f"[14d e2e_bench] 8 images of {P14_SIZE}^2, 3 planted people: "
+          + ", ".join(f"{k} {e2e[k]}" for k in (
+              "full_path_fps", "fast_path_fps", "pipelined_fps",
+              "compact_fps", "compact_pipelined_fps", "compact_batch_fps",
+              "device_decode_fps", "device_decode_batch_fps"))
+          + f" imgs/s; device_decode_host_fallback "
+          f"{e2e['device_decode_host_fallback']}; each mode's "
+          f"{len(reads['lane'])} people within "
+          + ", ".join(f"{m} {g:.3f}" for m, g in gaps.items())
+          + " px of its protocol's reading of the planted maps alone "
+          f"(lanes / full-map protocol {planted['lane']:.3f} / "
+          f"{planted['image']:.3f} px from the planted joints); decode "
+          f"launches {e2e_launches} [{smi}]")
+    # the planted joints themselves at full width: 2 people, as the CPU
+    # test plants them, which greedy assembly keeps apart
+    truth = {}
+    e2e_bench.main(base + [
+        "--size", str(P14_SIZE), "--images", "2", "--planted", "2",
+        "--batch", "2",
+        "--out", os.path.join(out, "e2e_bench_2p_torch.json")],
+        decoded=truth)
+    truth_gaps = {}
+    for mode in e2e_bench.MODES:
+        truth_gaps[mode] = max(
+            e2e_bench.planted_gap(sk, people, truth["planted_joints"])
+            for people in truth[mode])
+        check(truth_gaps[mode] <= 1.0, f"14d e2e_bench {mode}, 2 planted "
+              f"people: {truth_gaps[mode]:.3f} px from the planted joints")
+    print(f"[14d e2e_bench] 2 images of {P14_SIZE}^2, 2 planted people: "
+          "each mode's people within "
+          + ", ".join(f"{m} {g:.3f}" for m, g in truth_gaps.items())
+          + f" px of the planted joints [{smi}]")
+    marks.append(("d", time.perf_counter()))
+
+    # (e) the batcher against sequential serving; the proc A/B and chaos
+    reset_launches()
+    serve = serve_bench.main(base + [
+        "--sizes", str(P14_SIZE), "--requests", "4", "--clients", "1,4",
+        "--baseline-clients", "4", "--rounds", "1", "--planted", "2",
+        "--telemetry-sink", "none",
+        "--out", os.path.join(out, "serve_bench_torch.json")])
+    serve_launches = read_launches()
+    arms = serve["serve"] + [serve["serve_at_peak_load"]]
+    fracs = [a["hop_conservation_frac"] for a in arms]
+    check(all(f is not None and f >= 0.95 for f in fracs),
+          f"14e serve_bench: hop_conservation_frac {fracs}")
+    peak = serve["serve_at_peak_load"]
+    print(f"[14e serve_bench] {P14_SIZE}^2, 2 planted people: batcher "
+          + ", ".join(f"{a['clients']} clients {a['imgs_per_sec']} imgs/s "
+                      f"(p50 {a['latency_ms']['p50']} / p99 "
+                      f"{a['latency_ms']['p99']} ms, occupancy "
+                      f"{a['mean_batch_occupancy']})" for a in serve["serve"])
+          + f"; verdict at {peak['clients']} clients: batcher "
+          f"{peak['imgs_per_sec']} vs sequential "
+          f"{serve['sequential']['imgs_per_sec']} imgs/s (overlapped "
+          f"{serve['sequential_overlapped']['imgs_per_sec']}, concurrent "
+          f"{serve['sequential_concurrent']['imgs_per_sec']}), "
+          f"batched_beats_sequential {serve['batched_beats_sequential']}; "
+          f"decode A/B median ratio {serve['decode_ab']['median_round_ratio']}"
+          f"; hop_conservation_frac {fracs}; decode launches "
+          f"{serve_launches} [{smi}]")
+    marks.append(("e serve", time.perf_counter()))
+    proc = serve_bench.main(base + [
+        "--proc-only", "--proc-rounds", "1", "--telemetry-sink", "none",
+        "--out", os.path.join(out, "proc_bench_torch.json")])
+    chaos = proc["proc_chaos"]
+    check(chaos["all_futures_resolved"] and chaos["respawned"],
+          f"14e serve_bench --proc-only: chaos {chaos}")
+    print(f"[14e serve_bench] --proc-only: thread "
+          f"{proc['proc_ab']['thread_imgs_per_sec']} vs process "
+          f"{proc['proc_ab']['process_imgs_per_sec']} imgs/s (median ratio "
+          f"{proc['proc_ab']['median_round_ratio']}); chaos: "
+          f"{chaos['resolved']} of {chaos['in_flight_at_kill']} futures "
+          f"resolved ({chaos['resolved_ok']} ok), worker "
+          f"{chaos['killed_pid']} respawned as {chaos['respawned_pid']}")
+    marks.append(("e proc-only", time.perf_counter()))
+    print(f"[14 tools] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
+    return {"train_bench": train_launches, "e2e_bench": e2e_launches,
+            "serve_bench": serve_launches}
+
+
 def main() -> int:
     import torch
 
@@ -5170,6 +5449,8 @@ def main() -> int:
         # ------------------------- 13. height-sharded inference
         streams.update(height_sharded_inference(dev, smi, trained,
                                                 sync_train, work))
+        # ------------------------- 14. the measuring tools
+        streams.update(measure_tools(dev, smi, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -17,7 +17,15 @@
   images;
 - ``python -m improved_body_parts_torch.cli.tta_bench``: AP under each
   test-time-augmentation grid, or the grid's fused-vs-looped A/B
-  (``tools/tta_bench.py``).
+  (``tools/tta_bench.py``);
+- the tools that measure the port on the card, each the counterpart of
+  the JAX package's ``tools/`` script of its name: ``cli.speed_test``
+  (network FPS), ``cli.perf_audit`` (audited and chained FPS beside the
+  FLOP count, a bytes floor and the profiler's device ms),
+  ``cli.train_bench`` (the train step over a batch sweep),
+  ``cli.e2e_bench`` (forward plus decode to skeletons in every
+  inference mode) and ``cli.serve_bench`` (the batcher against
+  sequential serving, and the thread- vs process-pool A/B).
 
 Each runs on ``--device cuda`` unless asked for ``cpu``, and prints, as
 its last report, one line ``CLI_REPORT {json}`` with the device it ran on
@@ -27,8 +35,11 @@ across the process boundary.
 """
 from __future__ import annotations
 
+import fnmatch
 import json
-from typing import Dict
+import os
+import subprocess
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -66,3 +77,57 @@ def parse_reports(stdout: str) -> list:
     return [json.loads(line[len(REPORT_PREFIX):])
             for line in stdout.splitlines()
             if line.startswith(REPORT_PREFIX)]
+
+
+def refuse_artifact(path: str, names: Iterable[str]) -> None:
+    """Exit with an error when ``path``'s file name matches one of
+    ``names`` (fnmatch patterns): the artifacts of the JAX package's
+    tools, which the port's tools never write."""
+    base = os.path.basename(path)
+    for pattern in names:
+        if fnmatch.fnmatchcase(base, pattern):
+            raise SystemExit(f"--out {path}: {pattern} is the JAX tool's "
+                             "artifact; pick another name")
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card's queued work (a CUDA launch returns before the
+    work ends, so every timing window closes here); nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card_stamp(device: torch.device) -> dict:
+    """``device`` (the card's name, or ``cpu``) and ``power_limit`` (the
+    card's limit as ``nvidia-smi`` reports it; None on the CPU or where
+    ``nvidia-smi`` does not answer): what every measured number stands
+    beside."""
+    if device.type != "cuda":
+        return {"device": "cpu", "power_limit": None}
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    limit: Optional[str] = None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+        limit = out.splitlines()[0].strip() if out else None
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return {"device": torch.cuda.get_device_name(index),
+            "power_limit": limit}
+
+
+def precision_stamp(model) -> dict:
+    """The settings that change both the FLOP rate and the answers: TF32
+    for cuDNN convolutions and for matmuls, the model's autocast dtype
+    (its ``compute_dtype``) and its parameters' storage dtype."""
+    store = next((p.dtype for p in model.parameters()
+                  if p.is_floating_point()), None)
+    return {"cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32),
+            "matmul_allow_tf32": bool(
+                torch.backends.cuda.matmul.allow_tf32),
+            "autocast_dtype": str(getattr(model, "compute_dtype",
+                                          torch.float32))[6:],
+            "params_dtype": str(store)[6:] if store is not None else None}

@@ -32,11 +32,11 @@ JAX tool's virtual host devices).  The artifact records
 The model is ``--checkpoint``'s (an epoch directory of
 ``train.checkpoint``) or the seeded init of ``--config``; ``--planted N``
 (default 2) adds N planted people's maps to its output
-(:class:`PlantedModel`: the whole forward still runs), so a random init
-gives the decode real people.  It runs on ``--device cuda`` unless asked
-for ``cpu`` and writes one strict-JSON artifact, ``--out`` (default
-``stream_bench_torch.json`` in the working directory; the JAX tool's
-``STREAM_BENCH.json`` / ``STREAM_FASTPATH.json`` are refused).
+(``cli.e2e_bench.PlantedModel``: the whole forward still runs), so a
+random init gives the decode real people.  It runs on ``--device cuda``
+unless asked for ``cpu`` and writes one strict-JSON artifact, ``--out``
+(default ``stream_bench_torch.json`` in the working directory; the JAX
+tool's ``STREAM_BENCH.json`` / ``STREAM_FASTPATH.json`` are refused).
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ import time
 import numpy as np
 
 from ..obs.events import strict_dump, strict_dumps
+from .e2e_bench import PlantedModel, planted_maps
 
 #: artifacts of the JAX package's tool, which this CLI never writes
 JAX_ARTIFACTS = ("STREAM_BENCH.json", "STREAM_FASTPATH.json")
@@ -270,85 +271,6 @@ class PreRendered:
         return self._frames[t]
 
 
-def planted_maps(skeleton, n_people, rng, canvas=1024):
-    """Stride-grid GT maps for N synthetic stick people (the data
-    pipeline's own ``Heatmapper``), which give the decode a
-    trained-model-like workload (``tools/e2e_bench.py``'s
-    ``planted_maps``).  ``canvas`` must cover the predictor's padded
-    input size; people are planted in the top-left 60% of it."""
-    from ..data.heatmapper import Heatmapper
-
-    sk = dataclasses.replace(skeleton, width=canvas, height=canvas)
-    joints = np.zeros((n_people, sk.num_parts, 3), np.float32)
-    joints[:, :, 2] = 2
-    layout = [("nose", 0, 0.12), ("neck", 0, 0.21), ("Rsho", -0.09, 0.22),
-              ("Lsho", 0.09, 0.22), ("Relb", -0.13, 0.33),
-              ("Lelb", 0.13, 0.33), ("Rwri", -0.14, 0.43),
-              ("Lwri", 0.14, 0.43), ("Rhip", -0.05, 0.45),
-              ("Lhip", 0.05, 0.45), ("Rkne", -0.06, 0.59),
-              ("Lkne", 0.06, 0.59), ("Rank", -0.06, 0.72),
-              ("Lank", 0.06, 0.72), ("Reye", -0.02, 0.10),
-              ("Leye", 0.02, 0.10), ("Rear", -0.04, 0.11),
-              ("Lear", 0.04, 0.11)]
-    region = canvas * 0.6
-    for p in range(n_people):
-        cx = rng.uniform(0.2, 0.8) * region
-        scale = rng.uniform(0.5, 0.8) * region
-        y0 = rng.uniform(0.0, 0.2) * region
-        for name, dx, dy in layout:
-            joints[p, sk.parts_dict[name]] = [cx + dx * scale,
-                                              y0 + dy * scale, 1]
-    maps = Heatmapper(sk).create_heatmaps(
-        joints, np.ones(sk.grid_shape, np.float32))
-    return (maps + rng.uniform(0, 1e-6, maps.shape)).astype(np.float32)
-
-
-class PlantedModel:
-    """Wraps the real network: output = planted GT maps + 1e-3 × the
-    real last-stack output, so the full forward still runs while the maps
-    hold decodable people.  The predictor's lanes are [image...,
-    mirror...]; the mirror lanes get the width-flipped, channel-permuted
-    maps, so the flip merge gives back the planted people at full
-    amplitude."""
-
-    def __init__(self, model, maps, skeleton):
-        import torch
-
-        self.model = model
-        dev = next(model.parameters()).device
-        self.maps = torch.from_numpy(maps).to(dev)
-        self.perm = (list(skeleton.flip_paf_ord)
-                     + [skeleton.paf_layers + i
-                        for i in skeleton.flip_heat_ord])
-        self.num_layers = skeleton.num_layers
-
-    def __getattr__(self, name):
-        if name == "model":      # not set yet: a copy being made
-            raise AttributeError(name)
-        return getattr(self.model, name)
-
-    def to(self, device):
-        """The wrapper on ``device`` (a serving replica's deep copy is
-        moved so)."""
-        self.model = self.model.to(device)
-        self.maps = self.maps.to(device)
-        return self
-
-    def __call__(self, imgs):
-        import torch
-
-        out = self.model(imgs)[-1][0].float()
-        n2, h, w, _ = out.shape
-        if self.maps.shape[0] < h or self.maps.shape[1] < w:
-            raise ValueError("planted canvas smaller than the model grid; "
-                             "raise --planted-canvas")
-        m = self.maps[:h, :w, :self.num_layers]
-        mirror = m.flip(1)[..., self.perm]
-        n = n2 // 2
-        return [[torch.cat([m[None] + 1e-3 * out[:n],
-                            mirror[None] + 1e-3 * out[n:]], dim=0)]]
-
-
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="canonical")
@@ -430,7 +352,7 @@ def _parser():
 
 def build_predictor(args, device):
     """The bench's ``Predictor``: ``--checkpoint`` or the seeded init of
-    ``--config`` at ``--params-dtype``, wrapped in :class:`PlantedModel`
+    ``--config`` at ``--params-dtype``, wrapped in ``PlantedModel``
     when ``--planted`` > 0."""
     from ..config import get_config
     from ..serve import checkpoint_predictor
@@ -466,15 +388,14 @@ def serve_devices(count: int, device) -> list:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if os.path.basename(args.out) in JAX_ARTIFACTS:
-        raise SystemExit(f"--out {args.out}: that name is the JAX tool's "
-                         "artifact; pick another")
 
     from .. import resolve_device
     from ..obs import Registry, RunTelemetry
     from ..serve import DynamicBatcher
     from ..stream import FastPathConfig, SessionManager, SyntheticVideo
-    from . import exit_report
+    from . import exit_report, refuse_artifact
+
+    refuse_artifact(args.out, JAX_ARTIFACTS)
 
     device = resolve_device(args.device)
     devices = serve_devices(args.devices, device)

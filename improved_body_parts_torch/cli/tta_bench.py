@@ -36,6 +36,8 @@ import time
 
 import numpy as np
 
+from .e2e_bench import synth_images
+
 GRIDS = {
     "single_scale": {},
     "rotation_pm30": {"rotation_search": (0.0, 30.0, -30.0)},
@@ -46,23 +48,6 @@ GRIDS = {
     "ms_rot_pm60": {"scale_search": (0.8, 1.0, 1.2),
                     "rotation_search": (0.0, 30.0, -30.0, 60.0, -60.0)},
 }
-
-
-def synth_images(n: int, size: int, rng) -> list:
-    """BGR uint8 images with mild structure (blobs over a dark noise
-    floor), as the JAX tool's A/B draws them."""
-    imgs = []
-    yy, xx = np.mgrid[0:size, 0:size]
-    for _ in range(n):
-        img = rng.integers(0, 60, (size, size, 3)).astype(np.uint8)
-        for _ in range(rng.integers(2, 5)):
-            cx, cy = rng.integers(size // 8, 7 * size // 8, 2)
-            r = rng.integers(size // 16, size // 6)
-            blob = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * r * r))
-            img = np.clip(img + (blob[..., None] * 180), 0, 255
-                          ).astype(np.uint8)
-        imgs.append(img)
-    return imgs
 
 
 def run_arm(pred, images, prm, fused: bool, mode: str = "compact"):

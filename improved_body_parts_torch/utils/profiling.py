@@ -5,14 +5,19 @@ The reference's tracing is wall-clock meters around cuda.synchronize
 (reference: train_distributed.py:285-298, test_inference_speed.py:106-115).
 On the card the first-class tool is ``torch.profiler``:
 :func:`profile_trace` captures a device trace and exports it as a Chrome
-trace, :func:`timed` wall-clocks a block, and :func:`chained_time` times
-a serialized chain of forwards with CUDA events.
+trace, :func:`timed` wall-clocks a block, :func:`chained_time` times
+a serialized chain of forwards with CUDA events, and
+:func:`device_window` / :func:`profile_device` read the card's own time
+out of a profiler window (the one reading of device time that the
+measuring tools and ``chip_smoke.py`` share).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import re
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -147,3 +152,105 @@ def chained_time(forward, variables, x: torch.Tensor, iters: int = 50,
     t0 = time.perf_counter()
     float(chain(noise))
     return (time.perf_counter() - t0) / iters
+
+
+_LAUNCH = re.compile(r"^cu(da)?LaunchKernel")
+_NOT_KERNELS = ("Memcpy", "Memset")
+
+
+@dataclasses.dataclass
+class DeviceWindow:
+    """What one profiler window saw (:func:`device_window`)."""
+
+    activity: dict          # {name: [ns, records]}: kernels, copies, sets
+    launch_calls: int       # the host's kernel-launch API calls
+    cuda_launch_kernel: int  # of those, ``cudaLaunchKernel``'s
+    wall_s: float           # host clock over the calls and the last sync
+    prof: object            # the profiler (its host tables under cpu=True)
+
+    @property
+    def device_ns(self) -> int:
+        """Every kernel, copy and set the card ran in the window."""
+        return sum(ns for ns, _ in self.activity.values())
+
+    @property
+    def kernels(self) -> int:
+        """Kernel records (copies and sets apart)."""
+        return sum(n for name, (_, n) in self.activity.items()
+                   if not name.startswith(_NOT_KERNELS))
+
+
+def tally(events) -> tuple:
+    """(activity, launch calls, ``cudaLaunchKernel`` calls) of raw kineto
+    records (``prof.profiler.kineto_results.events()``).  A range the
+    host records (an optimizer's step, DDP's forward) shows on the
+    device's track as a user annotation spanning its kernels: it is no
+    work of its own, so it is skipped, or the card would look busier
+    than the wall clock allows."""
+    from torch.autograd import DeviceType
+
+    activity = {}
+    launches = cuda_launch = 0
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation():
+                continue
+            rec = activity.setdefault(name, [0, 0])
+            rec[0] += e.duration_ns()
+            rec[1] += 1
+        elif _LAUNCH.match(name):
+            launches += 1
+            cuda_launch += name == "cudaLaunchKernel"
+    return activity, launches, cuda_launch
+
+
+def device_window(fn: Callable, calls: int = 1, cpu: bool = False,
+                  device=None) -> DeviceWindow:
+    """``calls`` back-to-back calls of ``fn`` under ``torch.profiler``
+    (CUDA activity, and host ops when ``cpu``), closed by a device sync.
+    The raw records are read, not ``prof.events()``, whose tree costs
+    ~50 us an event: tens of seconds for a window of 20 forwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    activity, launches, cuda_launch = tally(
+        prof.profiler.kineto_results.events())
+    return DeviceWindow(activity, launches, cuda_launch, wall, prof)
+
+
+def profile_device(fn: Callable, device, calls: int = 20,
+                   windows: int = 3) -> dict:
+    """The card's work a call of ``fn``, from :func:`device_window` over
+    ``calls`` calls: ``device_ms`` (every kernel and copy the card ran),
+    ``kernels`` (kernel records), ``launch_calls`` (the host's
+    kernel-launch API calls) and ``cuda_launch_kernel`` (of those,
+    ``cudaLaunchKernel``'s), each a call.  The profiler drops a kernel or
+    two at a window's start, and now and then most of a window's device
+    activity, so a window that recorded fewer than 99% of its launch
+    calls' kernels is profiled again, up to ``windows`` times; then every
+    value is None (not measured), as on the CPU, which has no device to
+    measure."""
+    keys = ("device_ms", "kernels", "launch_calls", "cuda_launch_kernel")
+    if device.type != "cuda":
+        return dict.fromkeys(keys)
+    fn()
+    torch.cuda.synchronize(device)
+    for window in range(1, windows + 1):
+        w = device_window(fn, calls, device=device)
+        if w.kernels > 0 and w.kernels >= 0.99 * w.launch_calls:
+            return {"device_ms": w.device_ns / 1e6 / calls,
+                    "kernels": w.kernels / calls,
+                    "launch_calls": w.launch_calls / calls,
+                    "cuda_launch_kernel": w.cuda_launch_kernel / calls}
+        print(f"[profile_device] window {window} of {windows}: "
+              f"{w.kernels} kernels recorded for {w.launch_calls} launch "
+              "calls", flush=True)
+    return dict.fromkeys(keys)
