@@ -2,8 +2,8 @@
 """Drive the PyTorch port on one NVIDIA H100: the serve lane, training, the
 learn->AP loop, the accuracy tiers of inference, serving beyond one
 batcher (replica pool, cascade, process router), live video streams
-with the run telemetry, multi-card training, height-sharded inference
-and the tools that measure the port.
+with the run telemetry, multi-card training, height-sharded inference,
+the tools that measure the port, and the training tools and model I/O.
 
     python3 chip_smoke.py
 
@@ -319,6 +319,29 @@ released before phase 6, so phase 6's peak memory is its own;
    arm), then ``--proc-only --proc-rounds 1`` (every future of the chaos
    arm resolved, the SIGKILLed worker respawned).  Its rates prove the
    tools run; at these request counts they are not baselines.
+15. the training tools and model I/O at full width, (b) first on a
+   quiet card, then (c) with its children beside (a) and (e), then (d)
+   alone: (a) phase 7's
+   checkpoint written as upstream's trainer saves a ``.pth`` (upstream's
+   names under ``module.``, ``{'weights', 'epoch': 52, 'train_loss'}``)
+   and imported by ``cli.import_torch_checkpoint``: the import's
+   fused-lane detections on phase 7's val set equal phase 7's, its AP
+   the same, every decode kernel launched; a seeded ``canonical``
+   imported the same way gives the source model's batch-8 forward at
+   512x512 bit for bit (fp32); (b) ``cli.ckpt_bench --rounds 1 --epochs
+   2 --steps 4 --strict`` at ``canonical`` (the sync and async stalls a
+   save, their ratio against the 5.0 target, a bit-identical restore,
+   the writes overlapping later step / eval spans; the focal kernels
+   held on its first step's 5 calls); (c) ``cli.chaos_train --kills 2
+   --seed 35 --workers 0 --strict`` at ``canonical`` (8 records, 4
+   epochs): a SIGKILL between epoch 1's payload and its commit marker
+   (after epoch 0 committed), then a SIGTERM, the control run beside the
+   segments; every resume on the last committed epoch, and the last
+   segment resumed from a commit; no leaked process or writer thread;
+   the control run exited 0 and the final state matches it; (d) ``cli.feed_rate --workers 0,2
+   --min-seconds 3 --repeats 1`` at ``canonical`` against phase 14's
+   ``train_bench_torch.json``; (e) ``cli.demo --params-dtype`` int8 and
+   bf16 on phase 7's first val image, the result image written.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -330,7 +353,8 @@ and ``swa``, phase 10's as ``pool``, ``cascade`` and
 phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
 ``telemetry``, phase 12(a)'s as ``multi_card``, phase 13(b)'s rank 0 as
 ``spatial`` and ``distill_multi_rank``, phase 14's as ``train_bench``,
-``e2e_bench`` and ``serve_bench``; the focal kernels' device ms a
+``e2e_bench`` and ``serve_bench``, phase 15's as ``upstream_import``
+and ``ckpt_bench``; the focal kernels' device ms a
 step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
@@ -1512,7 +1536,10 @@ def learn_to_ap(dev, smi, work):
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches, dict(checkpoint=latest, anno=anno, val_dir=val_dir,
                           net=net, ap_fused=ap_device["AP"],
-                          records=records)
+                          records=records,
+                          detections=os.path.join(
+                              kw["results_dir"],
+                              "person_keypoints_synth_trained.json"))
 
 
 def time_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
@@ -5150,7 +5177,344 @@ def measure_tools(dev, smi, work):
             "serve_bench": serve_launches}
 
 
+# ---------------------------- 15. the training tools and model I/O
+P15_CONFIG = "canonical"
+P15_CKPT = dict(rounds=1, epochs=2, steps=4)
+# seed 35 plans a SIGKILL at the second mid_ckpt_write hit (epoch 1's
+# write torn before its marker, after epoch 0 committed: epoch 1's save
+# waited for epoch 0's write), then a SIGTERM, so two segments resume
+# from a commit; 4 epochs keep that hit inside the first half of the run.
+# No ring workers: a cli.train child's ring spawns its workers after the
+# child imported torch (~10 s a ring on the card's host, two rings a child)
+P15_CHAOS = dict(kills=2, seed=35, records=8, val_records=4, epochs=4,
+                 workers=0)
+P15_FEED = dict(workers="0,2", min_seconds=3, repeats=1)
+P15_FORWARD = (8, 512)          # (a) the seeded canonical forward
+
+
+def upstream_pth(path, model, cfg, epoch: int, train_loss: float) -> str:
+    """``model``'s weights written as upstream's trainer saves them:
+    upstream's names under DDP's ``module.`` prefix, in ``{'weights',
+    'epoch', 'train_loss'}``."""
+    import torch
+
+    from improved_body_parts_torch.cli.import_torch_checkpoint import (
+        export_upstream_state_dict,
+    )
+
+    m = cfg.model
+    torch.save({"weights": export_upstream_state_dict(
+        model, m.nstack, m.hourglass_depth, prefix="module."),
+        "epoch": epoch, "train_loss": train_loss}, path)
+    return path
+
+
+def upstream_import(dev, smi, ctx, work):
+    """Phase 15 (a): phase 7's checkpoint written in upstream's names and
+    imported by ``cli.import_torch_checkpoint``: its fused-lane people on
+    phase 7's val set bit for bit phase 7's and the same AP; a seeded
+    ``canonical`` imported the same way gives the source model's 512^2
+    batch-8 forward bit for bit.  Returns the decode launches."""
+    import torch
+
+    from improved_body_parts_torch.cli import import_torch_checkpoint
+    from improved_body_parts_torch.cli.evaluate import load_predictor
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.infer.evaluate import validation_oks
+    from improved_body_parts_torch.models import build_model
+    from improved_body_parts_torch.train import restore_checkpoint
+
+    out = os.path.join(work, "p15a")
+    os.makedirs(out, exist_ok=True)
+    cfg = get_config(SYNTH_AP["config"])
+    trained = build_model(cfg, device=dev, dtype=torch.float32)
+    trained.load_state_dict(restore_checkpoint(ctx["checkpoint"])["model"],
+                            strict=True)
+    pth = upstream_pth(os.path.join(out, "synth_canonical.pth"), trained,
+                       cfg, 52, 0.5)
+    path = import_torch_checkpoint.main([
+        "--pth", pth, "--out", os.path.join(out, "imported"),
+        "--config", SYNTH_AP["config"], "--device", dev.type])
+    check(path.endswith("epoch_52"), f"15a: imported to {path}")
+    imported = load_predictor(SYNTH_AP["config"], path, device=dev,
+                              boxsize=ctx["net"], params_dtype="fp32")
+    reset_launches()
+    res = validation_oks(imported, ctx["anno"], ctx["val_dir"],
+                         device_decode=True, use_native=True,
+                         dump_name="upstream_import",
+                         results_dir=os.path.dirname(ctx["detections"]))
+    launches = read_launches()
+    with open(ctx["detections"]) as f:
+        want = json.load(f)
+    with open(os.path.join(os.path.dirname(ctx["detections"]),
+                           "person_keypoints_upstream_import.json")) as f:
+        got = json.load(f)
+    check(got == want, f"15a: the imported checkpoint's people differ from "
+          f"phase 7's ({len(got)} against {len(want)} detections)")
+    check(res["AP"] == ctx["ap_fused"], f"15a: imported AP {res['AP']} != "
+          f"phase 7's {ctx['ap_fused']}")
+    for k, n in launches.items():
+        check(n > 0, f"15a: {k} never launched evaluating the import")
+    print(f"[15a upstream import] phase 7's checkpoint as an upstream .pth "
+          f"(module. prefix, epoch 52) -> {os.path.basename(path)}: "
+          f"{len(got)} fused-lane detections on the {SYNTH_AP['val_images']} "
+          f"val images equal to phase 7's, AP {res['AP']:.4f} = phase 7's; "
+          f"decode launches {launches} [{smi}]")
+    del imported, trained
+
+    # the published model's width: a seeded canonical through the same
+    # .pth, and its forward against the source model's
+    big = get_config(P15_CONFIG)
+    src = build_model(big, device=dev, seed=0, dtype=torch.float32).eval()
+    pth = upstream_pth(os.path.join(out, "canonical.pth"), src, big, 52,
+                       0.5)
+    path = import_torch_checkpoint.main([
+        "--pth", pth, "--out", os.path.join(out, "imported_canonical"),
+        "--config", P15_CONFIG, "--device", dev.type])
+    dst = build_model(big, device=dev, seed=1, dtype=torch.float32).eval()
+    dst.load_state_dict(restore_checkpoint(path)["model"], strict=True)
+    b, size = P15_FORWARD
+    x = torch.rand((b, size, size, 3), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(15))
+    with torch.no_grad():
+        want, got = src(x), dst(x)
+    torch.cuda.synchronize()
+    outs = [(i, j) for i in range(len(want)) for j in range(len(want[i]))]
+    differ = [(i, j) for i, j in outs
+              if not torch.equal(got[i][j], want[i][j])]
+    check(not differ, f"15a: the imported canonical's forward differs from "
+          f"the source model's at (stack, scale) {differ[:4]}")
+    n_params = sum(p.numel() for p in dst.parameters())
+    print(f"[15a upstream import] {P15_CONFIG} ({n_params} parameters) "
+          f"seeded, through an upstream .pth: its batch-{b} forward at "
+          f"{size}^2 equals the source model's bit for bit in all "
+          f"{len(outs)} (stack, scale) outputs [{smi}]")
+    del src, dst, want, got
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def in_background(fn, *args):
+    """Start ``fn(*args)`` on a thread of its own; returns ``join``, which
+    waits for it and gives its result or raises what it raised (a
+    ``SystemExit`` of a ``--strict`` tool included)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["result"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — raised again in join
+            box["error"] = e
+
+    thread = threading.Thread(target=run, name=f"bg-{fn.__module__}",
+                              daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+    return join
+
+
+def training_tools(dev, smi, ctx, work):
+    """Phase 15: the training tools and model I/O at full width.  (b)
+    ``cli.ckpt_bench --strict`` at ``canonical`` (the stall ratio as
+    measured, bit-identical restore, the write overlapping later spans;
+    the focal kernels held on the first step's calls) first, on a quiet
+    card and disk; then (c) ``cli.chaos_train --strict`` at
+    ``canonical`` (a torn checkpoint write after the first commit and a
+    SIGTERM, the control run, all four assertions), whose children run
+    beside (a) ``cli.import_torch_checkpoint``
+    (:func:`upstream_import`) and (e) ``cli.demo --params-dtype`` int8
+    and bf16 on a drawn image, which time nothing; last (d)
+    ``cli.feed_rate`` at ``canonical`` against phase 14's
+    ``train_bench_torch.json``, alone again.  Returns the launches by
+    path."""
+    import cv2
+    import torch
+
+    from improved_body_parts_torch.cli import (
+        chaos_train,
+        ckpt_bench,
+        demo,
+        feed_rate,
+    )
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.ops import losses
+
+    t0 = time.perf_counter()
+    marks = []
+    out = os.path.join(work, "p15")
+    os.makedirs(out, exist_ok=True)
+    base = ["--config", P15_CONFIG, "--device", dev.type]
+    launches = {}
+
+    # (b) the checkpoint stall, sync against async
+    focal_calls = []
+    fused = losses.focal_l2_fused
+    reset_focal()
+    losses.focal_l2_fused = first_calls(fused, 5, focal_calls)
+    try:
+        bench = ckpt_bench.main(base + [
+            "--rounds", str(P15_CKPT["rounds"]),
+            "--epochs", str(P15_CKPT["epochs"]),
+            "--steps", str(P15_CKPT["steps"]), "--strict",
+            "--out", os.path.join(out, "ckpt_bench_torch.json")])
+    finally:
+        losses.focal_l2_fused = fused
+    launches["ckpt_bench"] = focal_counts()
+    check(bench["bit_identical_restore"], "15b ckpt_bench: the sync and "
+          "async saves do not restore bit-identical")
+    check(bench["saves_per_arm"] == P15_CKPT["epochs"],
+          f"15b ckpt_bench: {bench['saves_per_arm']} saves an arm")
+    check(bench["write_overlaps_step_or_eval"], "15b ckpt_bench: no write "
+          "span overlaps a later step window or eval")
+    check(len(focal_calls) == 5, f"15b: captured {len(focal_calls)} focal "
+          "calls")
+    hold_focal(focal_calls,
+               torch.tensor(get_config(P15_CONFIG).train.nstack_weight,
+                            device=dev) * 0.25,
+               "ckpt_bench's first step", tag="[15b ckpt_bench]")
+    print(f"[15b ckpt_bench] {P15_CONFIG}, {bench['payload_bytes']} B a "
+          f"save (params, BN stats, momentum, SWA shadow), "
+          f"{bench['rounds']} round(s) of {bench['epochs_per_arm']} epochs "
+          f"x {bench['steps_per_epoch']} steps: sync stall "
+          f"{bench['sync_stall_ms_mean']} ms a save (median "
+          f"{bench['sync_stall_ms_median']}), async "
+          f"{bench['async_stall_ms_mean']} ms (median "
+          f"{bench['async_stall_ms_median']}); reduction "
+          f"{bench['stall_reduction']} against the target "
+          f"{bench['stall_reduction_target']} (meets "
+          f"{bench['meets_target']}); bit-identical restore; "
+          f"{bench['write_overlapping_later_spans']} later spans inside "
+          f"the writes; focal launches {launches['ckpt_bench']} [{smi}]")
+    marks.append(("b", time.perf_counter()))
+
+    # (c) kills and relaunches of supervised training: its children run
+    # while (a) and (e) run here
+    torch.cuda.empty_cache()
+    chaos_done = in_background(chaos_train.main, base + [
+        "--kills", str(P15_CHAOS["kills"]), "--seed", str(P15_CHAOS["seed"]),
+        "--records", str(P15_CHAOS["records"]),
+        "--val-records", str(P15_CHAOS["val_records"]),
+        "--epochs", str(P15_CHAOS["epochs"]),
+        "--workers", str(P15_CHAOS["workers"]), "--strict",
+        "--out", os.path.join(out, "chaos_train_torch.json")])
+    try:
+        launches["upstream_import"] = upstream_import(dev, smi, ctx, work)
+        marks.append(("a", time.perf_counter()))
+
+        # (e) a drawn image through the demo at int8 and bf16 storage
+        image = os.path.join(ctx["val_dir"], "000000000001.jpg")
+        people = {}
+        for dtype in ("int8", "bf16"):
+            result = os.path.join(out, f"demo_{dtype}.jpg")
+            rep = demo.main(["--config", SYNTH_AP["config"], "--checkpoint",
+                             ctx["checkpoint"], "--image", image, "--output",
+                             result, "--boxsize", str(ctx["net"]),
+                             "--params-dtype", dtype, "--device", dev.type])
+            drawn = cv2.imread(result)
+            check(drawn is not None
+                  and drawn.shape == cv2.imread(image).shape,
+                  f"15e demo {dtype}: no result image of the input's shape")
+            check(rep["people"] > 0, f"15e demo {dtype}: no people found")
+            people[dtype] = rep["people"]
+        print(f"[15e demo] {os.path.basename(image)} through cli.demo: "
+              + ", ".join(f"{d} {n} people" for d, n in people.items())
+              + f", result images written [{smi}]")
+        marks.append(("e", time.perf_counter()))
+    except BaseException:
+        try:
+            chaos_done()  # its children end before the failure is told
+        except BaseException:  # noqa: BLE001 — the first failure wins
+            pass
+        raise
+    chaos = chaos_done()
+    shutil.rmtree(chaos["workdir"], ignore_errors=True)
+    check(chaos["injection_kinds"] == ["mid_ckpt_write", "sigterm"]
+          and chaos["injections_done"] == P15_CHAOS["kills"],
+          f"15c chaos_train: injections {chaos['injection_kinds']}, "
+          f"{chaos['injections_done']} done")
+    check(chaos["final_matches_control"] is True
+          and chaos["control"].get("returncode") == 0,
+          f"15c chaos_train: control {chaos['control']}, final matches "
+          f"{chaos['final_matches_control']}")
+    last = chaos["segments"][-1]
+    check(chaos["resumes_from_commit"] >= 1 and last["end_status"]
+          == "completed" and last["committed_before"] >= 0
+          and last["resumed_from"] == last["committed_before"],
+          f"15c chaos_train: {chaos['resumes_from_commit']} resumes from a "
+          f"commit; the last segment {last}")
+    print(f"[15c chaos_train] {P15_CONFIG}, {P15_CHAOS['records']} records "
+          f"({chaos['steps_per_epoch']} steps an epoch), {chaos['epochs']} "
+          f"epochs: control {chaos['control'].get('wall_s')} s; segments "
+          + "; ".join(
+              f"{s['segment']}: "
+              + (f"{s['injection']['kind']}:{s['injection']['hit']}"
+                 if s["injection"] else "none")
+              + f" rc {s['returncode']} {s['wall_s']} s, committed "
+              f"{s['committed_before']}->{s['committed_after']}, "
+              f"resumed {s['resumed_from']}, end {s['end_status']}"
+              for s in chaos["segments"])
+          + f"; resumes on the last committed "
+          f"{chaos['all_resumes_on_last_committed']} "
+          f"({chaos['resumes_from_commit']} from a commit), leaked pids "
+          f"{chaos['leaked_pids_total']}, writer thread leaked "
+          f"{chaos['writer_thread_leaked']}, final bit-identical "
+          f"{chaos['final_bit_identical']}, loss rel diff "
+          f"{chaos['final_loss_rel_diff']} (tol {chaos['loss_tol']}) "
+          f"[{smi}]")
+    marks.append(("c", time.perf_counter()))
+
+    # (d) the ring's feed rate against phase 14's train rate
+    feed = feed_rate.main(base + [
+        "--workers", P15_FEED["workers"],
+        "--min-seconds", str(P15_FEED["min_seconds"]),
+        "--repeats", str(P15_FEED["repeats"]),
+        "--train-bench", os.path.join(work, "p14", "train_bench_torch.json"),
+        "--out", os.path.join(out, "input_pipeline_torch.json")])
+    for row in feed["rows"]:
+        check(row["samples"] > 0, f"15d feed_rate: no samples in {row}")
+    print(f"[15d feed_rate] {P15_CONFIG} {feed['image_size']}^2 batch "
+          f"{feed['batch']}, train rate {feed['chip_train_rate_imgs_per_sec']}"
+          f" imgs/s (phase 14's train_bench): "
+          + ", ".join(f"{r['mode']} {r['pipeline']} x{r['workers']} "
+                      f"{r['samples_per_sec']} samples/s"
+                      for r in feed["rows"])
+          + f"; projection {feed['projection']}; {feed['host_cores']} host "
+          f"cores [{smi}]")
+    marks.append(("d", time.perf_counter()))
+    print(f"[15 training tools, model I/O] phase took "
+          f"{marks[-1][1] - t0:.1f} s ({laps(t0, marks)} s; c ran beside "
+          f"a and e)")
+    return launches
+
+
+def share_bytecode() -> str:
+    """One bytecode cache, in a temporary directory, for this process and
+    every Python process it starts.  Where ``PYTHONDONTWRITEBYTECODE`` is
+    set and the installed packages hold no ``.pyc`` files, each process
+    compiles torch's sources anew, seconds of every child's start (the
+    chaos segments, the serve and rank workers).  Nothing is written
+    beside the sources, and the cache goes when the script ends."""
+    import atexit
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+    atexit.register(shutil.rmtree, cache, True)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+    return cache
+
+
 def main() -> int:
+    share_bytecode()
     import torch
 
     if not torch.cuda.is_available():
@@ -5451,6 +5815,8 @@ def main() -> int:
                                                 sync_train, work))
         # ------------------------- 14. the measuring tools
         streams.update(measure_tools(dev, smi, work))
+        # ------------- 15. the training tools and model I/O
+        streams.update(training_tools(dev, smi, trained, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

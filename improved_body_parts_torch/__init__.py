@@ -20,12 +20,16 @@ from __future__ import annotations
 
 import functools
 
-import torch
+# torch is imported where it is used, not here: a spawned ring worker
+# imports this package (``data.shm_ring`` says which modules, and a test
+# holds a worker to it), so it starts without torch's import
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """The device an entry point runs on: ``cuda`` by default, the CPU
     only when asked for.  Never falls back to the CPU quietly."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -34,7 +38,7 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def use_kernel(t: torch.Tensor) -> bool:
+def use_kernel(t: "torch.Tensor") -> bool:
     """True when ``t`` lies on a CUDA device (the op launches its kernel),
     False on the CPU (the op runs the kernel's plain version); raises for
     any other device."""
@@ -46,12 +50,21 @@ def use_kernel(t: torch.Tensor) -> bool:
                      "'cuda', or on 'cpu' when asked")
 
 
+def device_tensor(values: tuple, device: "torch.device",
+                  dtype: "torch.dtype" = None) -> "torch.Tensor":
+    """``values`` as a tensor on ``device`` (int64 unless ``dtype`` says
+    otherwise), made once per (values, device, dtype) and shared: callers
+    must not write to it.  A blocking copy from host memory makes PyTorch
+    wait for the stream's queued work, so the serve lane takes its
+    constant index tensors from here instead of copying them at each
+    call."""
+    import torch
+
+    return _device_tensor(values, device, dtype or torch.int64)
+
+
 @functools.lru_cache(maxsize=None)
-def device_tensor(values: tuple, device: torch.device,
-                  dtype: torch.dtype = torch.int64) -> torch.Tensor:
-    """``values`` as a tensor on ``device``, made once per (values, device,
-    dtype) and shared: callers must not write to it.  A blocking copy from
-    host memory makes PyTorch wait for the stream's queued work, so the
-    serve lane takes its constant index tensors from here instead of
-    copying them at each call."""
+def _device_tensor(values, device, dtype):
+    import torch
+
     return torch.tensor(values, dtype=dtype).to(device)

@@ -5,8 +5,11 @@ reference: demo_image.py, ``--image/--output``)::
         --checkpoint checkpoints/epoch_99 --image person.jpg \\
         --output result.jpg
 
-Runs on ``--device cuda`` unless asked for ``cpu``; prints the people
-found, then the ``CLI_REPORT`` line (``cli``).
+Runs on ``--device cuda`` unless asked for ``cpu``; ``--params-dtype``
+picks the weight storage as ``cli.evaluate``'s does (``auto``: bf16 on the
+card, fp32 on the CPU; ``int8``: weight-only per-output-channel, which
+the JAX tool does not offer); prints the people found, then the
+``CLI_REPORT`` line (``cli``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,11 @@ def main(argv=None):
     ap.add_argument("--boxsize", type=int, default=0,
                     help="scale the image so its height maps to this "
                          "network input size; 0 keeps the default")
+    ap.add_argument("--params-dtype", default="auto",
+                    choices=["auto", "bf16", "fp32", "int8"],
+                    help="weight storage: auto = bf16 on the card, fp32 on "
+                         "the CPU; int8 = weight-only per-output-channel "
+                         "quantization (utils.precision)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
@@ -38,12 +46,14 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     predictor = load_predictor(args.config, args.checkpoint, device=device,
-                               boxsize=args.boxsize)
+                               boxsize=args.boxsize,
+                               params_dtype=args.params_dtype)
     _, (subset, _) = run_demo(predictor, args.image, args.output,
                               use_native=not args.no_native,
                               device_decode=args.device_decode)
     print(f"{len(subset)} people -> {args.output}")
-    exit_report("demo", device, config=args.config, people=len(subset))
+    return exit_report("demo", device, config=args.config,
+                       people=len(subset), params_dtype=args.params_dtype)
 
 
 if __name__ == "__main__":

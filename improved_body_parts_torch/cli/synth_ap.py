@@ -21,7 +21,9 @@ CLI's ``CLI_REPORT`` (device, kernel launches, timings).
 int8 weight storage (the evaluate CLI's ``--params-dtype``), writes
 ``ap_trained_bf16``, ``ap_trained_int8``, ``int8_vs_bf16_ap_delta`` and
 ``int8_within_tolerance`` (|AP(int8) - AP(bf16)| <= 0.01), and exits 1
-when the bound is broken.  Not ported yet (ROADMAP.md): ``--device-gt``.
+when the bound is broken.  ``--workers N`` (shm-ring workers; 0, the
+default, trains in-process) and ``--device-gt MAX_PEOPLE`` (the GT maps
+made on the device) are passed to the train CLI.
 """
 from __future__ import annotations
 
@@ -109,12 +111,20 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.0,
                     help="override the config learning rate (passed to "
                          "the train CLI)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="shm-ring workers of the train CLI; 0 (in-process) "
+                         "is fastest on few-core hosts: each spawned worker "
+                         "imports torch")
     ap.add_argument("--crowd", action="store_true",
                     help="render unannotated people + crowd regions into "
                          "train and val (miss-masked in training, "
                          "iscrowd-ignored in eval)")
     ap.add_argument("--no-miss-mask", action="store_true",
                     help="ablation for --crowd: mask_miss forced to ones")
+    ap.add_argument("--device-gt", type=int, default=0,
+                    help="train with the GT maps made on the device "
+                         "(--device-gt N = max people a sample, passed to "
+                         "the train CLI)")
     ap.add_argument("--train-timeout", type=int, default=0,
                     help="seconds before the train subprocess is killed; "
                          "0 = 600 s an epoch + 1 h, at least 2 h")
@@ -165,10 +175,13 @@ def main(argv=None):
           flush=True)
     train_args = ["--config", args.config, "--epochs", str(epochs),
                   "--train-h5", corpus, "--checkpoint-dir", ckpt_dir,
+                  "--workers", str(args.workers),
                   "--print-freq", "20", "--seed", str(args.seed),
                   "--device", args.device]
     if args.lr:
         train_args += ["--lr", str(args.lr)]
+    if args.device_gt:
+        train_args += ["--device-gt", str(args.device_gt)]
     train_out = run_cli("train", train_args,
                         timeout=args.train_timeout
                         or max(7200, 600 * epochs + 3600))
@@ -221,7 +234,7 @@ def main(argv=None):
         "lr": args.lr or cfg.train.learning_rate_per_device,
         "canvas": list(canvas), "decode_path": args.decode_path,
         "crowd": args.crowd, "miss_mask": not args.no_miss_mask,
-        "device_gt": 0,
+        "device_gt": args.device_gt,
         "seed": args.seed, "val_seed": args.val_seed, "hard": args.hard,
         "train_platform": args.device, "eval_platform": args.device,
         "train_loss_first": losses[0] if losses else None,

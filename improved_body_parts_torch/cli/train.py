@@ -15,7 +15,11 @@ Flags, with the JAX CLI's meaning:
   ring of N spawn workers, its batches copied ahead to the device by
   ``parallel.device_prefetch``; the config's ``input_pipeline`` by
   default), ``--wire {uint8,f32}``, ``--device-gt MAX_PEOPLE`` (labels
-  made on the device from padded joints);
+  made on the device from padded joints); ``--train-h5`` / ``--val-h5``
+  take an HDF5 corpus or a records file (``.npz``,
+  ``data.fixture.save_records``, for a host without h5py);
+  ``--debug-overlays`` draws the first batch of each epoch under
+  ``<checkpoint_dir>/overlays`` (skipped under ``--device-gt``);
 - ``--no-focal`` (plain L2), ``--on-divergence {warn,halt,skip_step}``
   (the run-health sentinel's policy: warn records a divergent window,
   halt stops the run with ``obs.DivergenceError``, skip_step drops the
@@ -216,6 +220,11 @@ def _parser():
     ap.add_argument("--distill-alpha-warmup", type=int, default=None,
                     metavar="STEPS",
                     help="ramp alpha from 1.0 over the first STEPS steps")
+    ap.add_argument("--debug-overlays", action="store_true",
+                    help="save a GT heatmap overlay of the first batch each "
+                         "epoch under <checkpoint_dir>/overlays (the "
+                         "reference's show_image debug display, "
+                         "train.py:188-200)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the parameter init and the data pipeline")
     ap.add_argument("--device", default="cuda",
@@ -489,8 +498,9 @@ def _partition_rules(cfg):
 def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
     """The CLI's mesh, datasets and :func:`train`, then its
     ``CLI_REPORT``."""
-    from ..data import CocoPoseDataset
+    from ..data import open_corpus
     from ..parallel import make_mesh
+    from ..parallel.mesh import process_index
     from ..train import TopologyChanged
     from ..train.checkpoint import _named_state
     from . import exit_report
@@ -514,10 +524,15 @@ def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
         raise SystemExit(f"--val-h5 {val_h5} missing on this host; every "
                          "rank needs it in a multi-process run (or drop "
                          "--val-h5)")
-    ds = CocoPoseDataset(train_h5, cfg, augment=True, seed=args.seed)
-    val_ds = (CocoPoseDataset(val_h5, cfg, augment=False)
+    ds = open_corpus(train_h5, cfg, augment=True, seed=args.seed)
+    val_ds = (open_corpus(val_h5, cfg, augment=False)
               if os.path.exists(val_h5) else None)
     pipeline = args.input_pipeline or tr.input_pipeline
+    debug_overlays = args.debug_overlays and process_index() == 0
+    if args.debug_overlays and args.device_gt:
+        print("--debug-overlays needs host-side labels; "
+              "skipped under --device-gt")
+        debug_overlays = False
     try:
         state, report = train(
             cfg, ds, args.epochs or tr.epochs, device=device,
@@ -529,7 +544,7 @@ def _run(args, cfg, teacher_cfg, device, supervisor, telemetry):
             swa_lr_max=args.swa_lr_max, swa_lr_min=args.swa_lr_min,
             supervisor=supervisor, teacher=teacher, telemetry=telemetry,
             mesh=mesh, partition_rules=_partition_rules(cfg),
-            reshard=args.reshard or "refuse")
+            reshard=args.reshard or "refuse", debug_overlays=debug_overlays)
     except TopologyChanged as e:
         raise SystemExit(str(e)) from None
     finally:
@@ -553,7 +568,7 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
           swa: bool = False, swa_freq: int = 5, swa_lr_max: float = 1e-5,
           swa_lr_min: float = 1e-6, supervisor=None, teacher=None,
           telemetry=None, mesh=None, partition_rules=None,
-          reshard: str = "refuse"):
+          reshard: str = "refuse", debug_overlays: bool = False):
     """The train CLI's run, on any dataset with ``len`` and the batch
     protocol of ``data.batches`` (``CocoPoseDataset`` over HDF5,
     ``MemoryDataset``): the model of ``cfg`` built from ``seed`` on
@@ -581,7 +596,10 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
     ruleset, None for the replicated regime) lays the state out and rides
     the topology stamp with its fingerprint; ``reshard`` is the policy
     for a ``resume`` stamped under another topology.  Rank 0 writes the
-    checkpoints and the log.
+    checkpoints and the log.  ``debug_overlays`` writes each epoch's first
+    host batch as ``<checkpoint_dir>/overlays/epoch_<N>.png`` (the person
+    mask and the first keypoint over the image,
+    ``utils.visualize.save_batch_overlays``); it needs host labels.
 
     Returns ``(state, report)``: the report holds the steps and images
     trained, the median step ms, train imgs/s over the epochs' batch
@@ -741,13 +759,33 @@ def train(cfg, dataset, epochs: int, *, device, seed: int = 0,
                                        prefix="eval_input_ring")
     host = dict(process_index=data_index, process_count=data_ranks)
 
+    if debug_overlays and device_gt:
+        raise ValueError("debug_overlays needs host labels; drop device_gt")
+
+    def with_overlay(it, epoch):
+        """``it`` with its first batch drawn to the epoch's overlay."""
+        from ..utils.visualize import save_batch_overlays
+
+        overlay_dir = os.path.join(tr.checkpoint_dir, "overlays")
+        os.makedirs(overlay_dir, exist_ok=True)
+        for i, (images, mask, labels) in enumerate(it):
+            if i == 0:
+                sk = cfg.skeleton
+                save_batch_overlays(
+                    os.path.join(overlay_dir, f"epoch_{epoch}.png"),
+                    images, labels, channels=(sk.bkg_start, sk.heat_start))
+            yield images, mask, labels
+
     def make_train_batches(epoch):
         if rings:
-            it = device_prefetch(rings[0].batches(epoch, shard=shard,
-                                                  **host), device, depth=2)
+            it = rings[0].batches(epoch, shard=shard, **host)
         else:
             it = batches(dataset, rank_batch, epoch, pipeline="sync",
                          wire=wire, raw_gt=device_gt, shard=shard, **host)
+        if debug_overlays:
+            it = with_overlay(it, epoch)
+        if rings:
+            it = device_prefetch(it, device, depth=2)
         t0 = time.perf_counter()
         while True:
             t = time.perf_counter()

@@ -178,6 +178,19 @@ class MemoryDataset(CocoPoseDataset):
                 tuple(objpos), float(scale))
 
 
+def open_corpus(path: str, config: Config, augment: bool = True,
+                seed: int = 0) -> CocoPoseDataset:
+    """The dataset over the corpus at ``path``: a records file of
+    ``data.fixture.save_records`` (``.npz``, no h5py needed) as a
+    :class:`MemoryDataset`, else the HDF5 corpus."""
+    from .fixture import RECORDS_SUFFIX, load_records
+
+    if path.endswith(RECORDS_SUFFIX):
+        return MemoryDataset(load_records(path), config, augment=augment,
+                             seed=seed)
+    return CocoPoseDataset(path, config, augment=augment, seed=seed)
+
+
 def epoch_permutation(n: int, epoch: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng((seed, epoch)).permutation(n)
 

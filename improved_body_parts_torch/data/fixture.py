@@ -5,7 +5,10 @@ The port's copy of ``improved_body_parts_tpu/data/fixture.py``
 ``build_fixture`` and the COCO-format writers ``build_val_set`` and
 ``build_coco_train_set``), so one seed writes the same records, images
 and annotation JSON in both packages; ``fixture_records`` gives
-``build_fixture``'s records in memory, for a host without h5py.
+``build_fixture``'s records in memory, for a host without h5py, and
+``save_records`` / ``load_records`` keep them in a NumPy ``.npz`` file
+that ``data.dataset.open_corpus`` (and so ``cli.train --train-h5``)
+opens as a ``MemoryDataset``.
 
 Writes a tiny HDF5 file with the exact schema of the real corpus builder
 (see hdf5_corpus.py / reference data/coco_masks_hdf5.py): groups ``dataset`` /
@@ -319,6 +322,34 @@ def fixture_records(num_images: int = 4, img_size: Tuple[int, int]
             out.append((img, mask_miss, mask_all,
                         np.asarray(rec["joints"]), tuple(rec["objpos"][0]),
                         float(rec["scale_provided"][0])))
+    return out
+
+
+RECORDS_SUFFIX = ".npz"
+_RECORD_FIELDS = ("img", "mask_miss", "mask_all", "joints", "objpos",
+                  "scale")
+
+
+def save_records(path: str, records) -> int:
+    """Write ``records`` (:func:`fixture_records`' tuples) to the ``.npz``
+    file ``path``, arrays as they are (no pickle); returns the count."""
+    arrays = {}
+    for i, rec in enumerate(records):
+        for field, value in zip(_RECORD_FIELDS, rec):
+            arrays[f"{i}/{field}"] = np.asarray(value)
+    np.savez(path, count=np.int64(len(records)), **arrays)
+    return len(records)
+
+
+def load_records(path: str) -> list:
+    """The records :func:`save_records` wrote, in order."""
+    with np.load(path, allow_pickle=False) as f:
+        out = []
+        for i in range(int(f["count"])):
+            img, mask_miss, mask_all, joints, objpos, scale = (
+                f[f"{i}/{field}"] for field in _RECORD_FIELDS)
+            out.append((img, mask_miss, mask_all, joints,
+                        tuple(float(v) for v in objpos), float(scale)))
     return out
 
 

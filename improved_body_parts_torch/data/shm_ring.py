@@ -24,8 +24,11 @@ Each slot's header carries ``[seq, epoch, batch_idx]``: the worker makes
 breach of slot ownership is an error, never a corrupted sample.
 
 Workers are spawned, never forked: a fork after the parent holds a CUDA
-context is unsafe.  A worker imports this package (``torch`` included)
-but never touches ``torch.cuda``.  The worker's dataset is rebuilt from
+context is unsafe.  A worker imports this module, so the package root
+and ``data/__init__`` with the modules it names, and none of them
+imports ``torch`` at module level: a worker starts without torch's
+import (seconds a process).  ``tests/test_torch_train_tools.py`` holds a
+spawned worker to that.  The worker's dataset is rebuilt from
 its HDF5 path (``CocoPoseDataset``) or, for a dataset held in memory
 (``MemoryDataset``, used where h5py is missing), from its records,
 pickled to the spawn target once at start-up.
@@ -658,6 +661,25 @@ class ShmRingInput:
         generator."""
         return self._run(self._epoch_tasks(epoch, process_index,
                                            process_count, shard))
+
+    def stream(self, start_epoch: int = 0, process_index: int = 0,
+               process_count: int = 1, shard: str = "strided"
+               ) -> Iterator[Tuple[np.ndarray, ...]]:
+        """Endless multi-epoch batch stream, pipelined across epoch
+        boundaries: epoch N+1's tasks enter the ring while N's last
+        batches drain, so the workers never idle at the boundary.  The
+        same batches as ``batches(N)`` for N = ``start_epoch``, ... in
+        order.  For consumers with no work at the boundary
+        (``cli.feed_rate``); per-epoch loops (checkpointing, eval) take
+        ``batches(epoch)``."""
+        def endless():
+            epoch = start_epoch
+            while True:
+                yield from self._epoch_tasks(epoch, process_index,
+                                             process_count, shard)
+                epoch += 1
+
+        return self._run(endless())
 
     def _run(self, task_iter) -> Iterator[Tuple[np.ndarray, ...]]:
         """Drive the ring over ``task_iter`` of (epoch, batch_idx,
