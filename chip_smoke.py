@@ -3,7 +3,8 @@
 learn->AP loop, the accuracy tiers of inference, serving beyond one
 batcher (replica pool, cascade, process router), live video streams
 with the run telemetry, multi-card training, height-sharded inference,
-the tools that measure the port, and the training tools and model I/O.
+the tools that measure the port, the training tools and model I/O, and
+the serving tools.
 
     python3 chip_smoke.py
 
@@ -35,8 +36,9 @@ failed phase ends the run with a non-zero exit code:
    same bits in two runs, the backward bit for bit.  Median times of
    kernel (CUDA events around the wrapper call) and plain version, and
    each kernel's device time apart from its wrapper (torch.profiler over
-   20 calls; topk_peaks by pass, beside what reading its maps' slices
-   alone takes; focal_fwd by scale);
+   20 calls, each kernel's records counted against its launches;
+   topk_peaks by pass, beside what reading its maps' slices alone
+   takes; focal_fwd by scale);
 4. planted serve: a stub network that returns planted people's maps, a few
    requests of different sizes through ``Predictor.predict_decoded_batch``
    and ``decode_device``; every planted person decodes, keypoints within
@@ -78,9 +80,11 @@ released before phase 6, so phase 6's peak memory is its own;
    and BN running stats moved, every step counted;
 7. learn->AP at full width: the protocol of ``cli.synth_ap`` at
    ``CANONICAL_TRAIN.json``'s settings (``synth_canonical``: the flagship
-   IMHN, 128,998,760 parameters, remat on, bf16 autocast; 32 drawn
+   IMHN, 128,998,760 parameters, remat on, bf16 autocast; drawn
    training images on a 288x384 canvas at a 192x192 input, batch 2, 18
-   epochs, seed 0; 12 held-out val images, seed 12345), in this process
+   epochs (the LR's /5 step at epoch 15 kept), seed 0; 12 held-out val
+   images, seed 12345; 16 training images where the file has 32, cut
+   for the script's time), in this process
    and through the CLIs' own functions: the card machine has no h5py, so
    the training records stay in memory (``data.fixture.fixture_records`` +
    ``data.MemoryDataset``, the records ``build_fixture`` would write) and
@@ -128,9 +132,8 @@ released before phase 6, so phase 6's peak memory is its own;
    the grid makes no synchronizing call (torch's sync debug mode set to
    error around it: no read back to the host before ``resolve()``).  (d) the dtype matrix: the
    trained checkpoint at fp32, bf16 and int8, the fused-lane AP on phase
-   7's 12 val images and on 48 of the same seed (the 12 and 36 more), the
-   stored bytes of each, and ``canonical``'s ``predict_decoded_batch``
-   imgs/s at batch 8 of 480x640 at each dtype.  Gates: the fp32 AP on the
+   7's 12 val images and on 48 of the same seed (the 12 and 36 more) and
+   the stored bytes of each.  Gates: the fp32 AP on the
    12 equal to phase 7's, |AP(int8) - AP(bf16)| <= 0.01 on the 48 (on 24
    people one OKS match moves AP by ~0.004), int8 bytes <= 0.35 x fp32.  A ``[8 accuracy tiers]`` summary line closes the phase.
 9. the rest of training at full width.  (a) variants: each of
@@ -161,8 +164,9 @@ released before phase 6, so phase 6's peak memory is its own;
    validation set) from a seeded ``canonical`` teacher (eval): 10 focal
    launches a step each way (and 5 forward an eval batch), the
    checkpoint's losses finite, the teacher's ``state_dict`` SHA-256 unchanged.  (d) SWA: 2 epochs of
-   ``cli.train.train(swa=True, swa_freq=2)`` resumed from phase 7's last
-   checkpoint: BN running stats bit for bit the checkpoint's,
+   ``cli.train.train(swa=True, swa_freq=2)`` on 16 of phase 7's records,
+   resumed from phase 7's last checkpoint: BN running stats bit for bit
+   the checkpoint's,
    ``swa_count`` 2, the SWA fields equal after a save and restore, and
    the averaged weights' OKS AP on phase 7's 12 val images (fused lane)
    beside phase 7's, gated at >= 0.5.  (e) supervisor: a supervised
@@ -209,7 +213,7 @@ released before phase 6, so phase 6's peak memory is its own;
    with it and are left out.
 11. live video streams and the run telemetry, on phase 7's checkpoint
    (``synth_canonical`` fp32, boxsize 192, the fused lane): 4
-   ``stream.SyntheticVideo`` streams of 48 drawn 480x640 frames (1, 2, 1
+   ``stream.SyntheticVideo`` streams of 32 drawn 480x640 frames (1, 2, 1
    and 2 people; each frame's index stamped into its pixel (0, 0)),
    every stream closed loop from its own thread.  (a) a
    ``stream.SessionManager`` over one ``DynamicBatcher(max_batch=8,
@@ -235,7 +239,7 @@ released before phase 6, so phase 6's peak memory is its own;
    registry during (a)-(c): its shards replay bit for bit, ``/history``
    and ``/query`` answer 200 on an ephemeral port, a
    ``serve.CapacityModel`` is fitted from it and printed; then
-   ``cli.train.train`` of ``synth_canonical`` for one epoch of 16 steps
+   ``cli.train.train`` of ``synth_canonical`` for one epoch of 8 steps
    under ``obs.RunTelemetry(sink, http_port=0, trace_path=...)`` with the
    health sentinel: ``/healthz`` 200, every event line strict JSON, the
    trace saved with its step windows, each focal kernel launched 5 times
@@ -297,13 +301,13 @@ released before phase 6, so phase 6's peak memory is its own;
 14. the tools that measure the port, each ``main(argv)`` in this process
    at full width (``canonical``, seeded, 512x512), with TF32 off (the
    script turns it off at its start): (a) ``cli.speed_test`` at batch 8,
-   20 timed calls, bf16 autocast and ``--fp32``; (b) ``cli.perf_audit
-   --batches 1 8 --iters 10 --repeats 3``: no implied rate above the
+   5 timed calls, bf16 autocast and ``--fp32``; (b) ``cli.perf_audit
+   --batches 1 8 --iters 10 --repeats 1``: no implied rate above the
    data-sheet peak, the ``FlopCounterMode`` count equal to the analytic
    conv + dense count, the profiler's device ms measured and no more than
    a dispatch's wall ms, the batch-8 chained FPS and its ``vs_baseline``
    printed; (c) ``cli.train_bench --batches 2 4 8 --steps 5 --repeats
-   2``: 5 + 5 focal launches a step, the device ms a step no more than
+   1``: 5 + 5 focal launches a step, the device ms a step no more than
    the step's ms, the focal kernels held to their plain versions on the
    first step's 5 calls with phase 7's tolerances; (d) ``cli.e2e_bench
    --images 8 --planted 3 --batch 8`` over every mode: each mode's people
@@ -339,9 +343,30 @@ released before phase 6, so phase 6's peak memory is its own;
    segments; every resume on the last committed epoch, and the last
    segment resumed from a commit; no leaked process or writer thread;
    the control run exited 0 and the final state matches it; (d) ``cli.feed_rate --workers 0,2
-   --min-seconds 3 --repeats 1`` at ``canonical`` against phase 14's
+   --min-seconds 2 --repeats 1`` at ``canonical`` against phase 14's
    ``train_bench_torch.json``; (e) ``cli.demo --params-dtype`` int8 and
    bf16 on phase 7's first val image, the result image written.
+16. the serving tools at full width, each ``main(argv)`` in this process:
+   (a) ``cli.cascade_bench --teacher-config canonical --student-config
+   canonical_student --size 512 --rounds 2`` (the JAX tool's other
+   defaults: 4 clients x 8 requests a slice, hard frames 0.25 of the
+   stream, max_batch 4): the two-tier ledger exact, the escalations
+   equal to the hard frames the cascade slices submitted (counted from
+   the stream indices ``run_slice`` takes), AP within the tool's
+   tolerance, no first run after warmup, every decode kernel launched,
+   and the three decode kernels bit for bit against their plain
+   versions on each tier's first served batch; the median
+   round ratio against the 1.3 target, both arms' imgs/s a round, p95,
+   the escalation rate and each tier's hop p50s printed as measured.
+   (b) ``cli.tta_bench --ab --planted 2 --config canonical --size 128
+   --num-images 4 --rounds 2`` (the 3 x 3 grid): payloads equal on every
+   image, AP parity, 1 fused and 10 looped dispatches an image, no first
+   run after warmup, the events file strict JSON with one
+   ``tta_ab_round`` a round and one ``tta_ab_verdict``, the gate binding,
+   the exit code the JAX tool's rule applied to the artifact (1 exactly
+   when the binding speedup gate is missed), and ``topk_peaks`` and
+   ``limb_pair_stats`` bit for bit against their plain versions on the
+   grid's first compact call; the speed verdict printed as measured.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -354,7 +379,8 @@ phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
 ``telemetry``, phase 12(a)'s as ``multi_card``, phase 13(b)'s rank 0 as
 ``spatial`` and ``distill_multi_rank``, phase 14's as ``train_bench``,
 ``e2e_bench`` and ``serve_bench``, phase 15's as ``upstream_import``
-and ``ckpt_bench``; the focal kernels' device ms a
+and ``ckpt_bench``, phase 16's as ``cascade_bench`` and ``tta_ab`` (the
+grid's compact lane: no assembly); the focal kernels' device ms a
 step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
@@ -374,6 +400,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -395,8 +422,10 @@ P_MAX = 32                                  # the lane's person table
 # either bucket and a full batch of the narrow one
 BUCKET_SHAPES = ((1, HEIGHT, WIDTH, 853), (1, HEIGHT, 512, 480),
                  (BATCH, HEIGHT, 512, 480))
-# phase 7: CANONICAL_TRAIN.json's learn->AP protocol
-SYNTH_AP = dict(config="synth_canonical", train_images=32, val_images=12,
+# phase 7: CANONICAL_TRAIN.json's learn->AP protocol, its 32 training
+# images cut to 16 for the script's time (half the steps; the 18 epochs
+# and so the schedule's LR step at epoch 15 kept)
+SYNTH_AP = dict(config="synth_canonical", train_images=16, val_images=12,
                 canvas=(288, 384), epochs=18, seed=0, val_seed=12345)
 # phase 8: the grids of the accuracy tiers, the mean grid of a 427x640
 # image at scale_search (0.8, 1.0, 1.2) and boxsize 640, and that image
@@ -464,19 +493,60 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def kernel_records(window, pats) -> dict:
+    """{kernel: [each record's duration in ns, in start order]} of one
+    ``utils.profiling.device_window``: the card's kernel records whose
+    name matches ``pats[kernel]`` (user annotations apart)."""
+    from torch.autograd import DeviceType
+
+    recs = {k: [] for k in pats}
+    for e in window.prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        for k, pat in pats.items():
+            if pat.search(e.name()):
+                recs[k].append((e.start_ns(), e.duration_ns()))
+    return {k: [d for _, d in sorted(r)] for k, r in recs.items()}
+
+
+def whole_calls(durs, per_call: int):
+    """The last whole calls' worth of a window's records of one kernel
+    (``per_call`` launches a call, in start order), or None.  The
+    profiler drops records at a window's edges, so the records kept run
+    on in the calls' order, and any ``m x per_call`` of them in a row
+    hold each of a call's launches ``m`` times.  None when fewer than a
+    call's worth were kept, or when the records are not periodic (a
+    record ``per_call`` later is more than 2x or under half as long):
+    one dropped inside the window."""
+    m = len(durs) // per_call
+    block = durs[len(durs) - m * per_call:]
+    if m == 0 or any(not 0.5 <= block[i + per_call] / block[i] <= 2.0
+                     for i in range(len(block) - per_call)):
+        return None
+    return block
+
+
 def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
-              windows: int = 3, required: bool = True):
+              windows: int = 5, required: bool = True):
     """Device time of ``fn()`` apart from the host work around it:
     ``utils.profiling.device_window`` over ``calls`` back-to-back calls,
-    the CUDA time of each kernel named in ``kernels`` (the ``__global__``
-    names of one source) over the launches recorded, times
-    ``launches_a_call``.  Returns {kernel: ms a call}.  The profiler can
-    drop a kernel at its window's start (the mean is over the launches it
-    kept); now and then it records no device activity at all in a
-    window, so a window that misses a kernel is profiled again, up to
-    ``windows`` times, and the measurement fails only when every window
-    missed it -- or, with ``required=False`` (a time the kernels line
-    does not carry), gives None for that kernel: not measured."""
+    each kernel named in ``kernels`` (the ``__global__`` names of one
+    source) read from its CUDA records: the mean a call, where a call
+    launches it ``launches_a_call`` times.  Returns {kernel: ms a
+    call}.  Each window's records of each kernel are counted against
+    the ``calls x launches_a_call`` launches made; a window that is
+    short is printed.  The profiler drops records at a window's edges:
+    often one, mostly in a measurement's first window, sometimes most or
+    all of them.  Where a call launches a kernel once, the mean is over
+    the records kept.  Where it launches it more than once (one launch
+    a scale, each of its own size), the mean is over the last whole
+    calls' worth of records (:func:`whole_calls`), so that each launch
+    weighs alike.  A window that cannot be read (no record or no whole
+    call's worth, records not periodic, more records than launches, a
+    record of no duration) is profiled again, up to ``windows`` times;
+    the measurement fails when no window could be read -- or, with
+    ``required=False`` (a time the kernels line does not carry), gives
+    None for those kernels: not measured."""
     import torch
 
     from improved_body_parts_torch.utils.profiling import device_window
@@ -484,28 +554,33 @@ def device_ms(fn, kernels, launches_a_call: int = 1, calls: int = 20,
     fn()
     torch.cuda.synchronize()
     pats = {k: re.compile(rf"(^|\W){k}($|\W)") for k in kernels}
+    want = calls * launches_a_call
     for window in range(1, windows + 1):
-        activity = device_window(fn, calls).activity
-        us = dict.fromkeys(kernels, 0.0)
-        seen = dict.fromkeys(kernels, 0)
-        for name, (ns, n) in activity.items():
-            for k, pat in pats.items():
-                if pat.search(name):
-                    us[k] += ns / 1e3
-                    seen[k] += n
-        missed = [k for k in kernels if seen[k] == 0]
-        if not missed:
-            return {k: us[k] / seen[k] * launches_a_call / 1e3
-                    for k in kernels}
-        print(f"[device_ms] profiler window {window} of {windows} recorded "
-              f"no launch of {', '.join(missed)} in {calls} calls",
-              flush=True)
+        recs = kernel_records(device_window(fn, calls), pats)
+        read = {k: whole_calls(r, launches_a_call)
+                if len(r) <= want and min(r, default=0) > 0 else None
+                for k, r in recs.items()}
+        off = [k for k, r in read.items() if r is None]
+        for k, r in recs.items():
+            if len(r) == want and k not in off:
+                continue
+            r = sorted(r)
+            durs = (f": record us min {r[0] / 1e3:.4f}, median "
+                    f"{statistics.median(r) / 1e3:.4f}, max "
+                    f"{r[-1] / 1e3:.4f}, sum {sum(r) / 1e3:.4f}" if r else "")
+            print(f"[device_ms] profiler window {window} of {windows} held "
+                  f"{len(r)} records of {k} for the {want} launched in "
+                  f"{calls} calls{durs}; "
+                  f"{'profiled again' if k in off else 'read'}", flush=True)
+        if not off:
+            return {k: sum(r) / len(r) * launches_a_call / 1e6
+                    for k, r in read.items()}
     if required:
-        fail(f"device_ms: the profiler recorded no launch of "
-             f"{', '.join(missed)} in {windows} windows of {calls} calls")
-    print(f"[device_ms] {', '.join(missed)}: not measured", flush=True)
-    return {k: None if k in missed else us[k] / seen[k] * launches_a_call
-            / 1e3 for k in kernels}
+        fail(f"device_ms: no profiler window of {windows} could be read "
+             f"for {', '.join(off)} ({want} launches in {calls} calls)")
+    print(f"[device_ms] {', '.join(off)}: not measured", flush=True)
+    return {k: None if r is None else sum(r) / len(r) * launches_a_call
+            / 1e6 for k, r in read.items()}
 
 
 def person_joints(sk, x0: float, y0: float, height: float) -> np.ndarray:
@@ -794,7 +869,9 @@ def hold_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
     """The three decode kernels on one batch of ensembled maps, as the
     lane calls them: ``topk_peaks`` and ``limb_pair_stats`` against their
     plain versions, then ``greedy_assemble`` on the candidates ranked from
-    those records; integers exactly, floats bit for bit."""
+    those records; integers exactly, floats bit for bit.  With
+    ``kw_asm`` None (the compact lane, which assembles nothing), the
+    first two only."""
     import torch
 
     from improved_body_parts_torch.ops import cuda_assembly, cuda_peaks
@@ -814,6 +891,13 @@ def hold_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
     got = cuda_peaks.limb_pair_stats_kernel(paf, pk[2], pk[3], **kw_st)
     torch.cuda.synchronize()
     compare(f"limb_pair_stats ({label})", got, st, {1, 2}, tol=0.0)
+    kept = int(torch.clamp(pk[6], max=kw_pk['k']).sum())
+    if kw_asm is None:
+        check(kept > 0, f"topk_peaks ({label}): no peak kept")
+        print(f"{tag} {label}: {kept} kept peaks, {int(st[2].sum())} limb "
+              "samples; topk_peaks and limb_pair_stats equal to their "
+              f"plain versions bit for bit [{smi}]")
+        return
     peaks = TopKPeaks(*pk)
     cands = limb_topk_from_stats(
         PairStats(*st), peaks, valid_h, limbs_from=kw_asm["limbs_from"],
@@ -826,8 +910,7 @@ def hold_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
             tol=0.0)
     people = int(want[2].sum())
     check(people > 0, f"greedy_assemble ({label}): no person assembled")
-    print(f"{tag} {label}: "
-          f"{int(torch.clamp(pk[6], max=kw_pk['k']).sum())} kept peaks, "
+    print(f"{tag} {label}: {kept} kept peaks, "
           f"{int(st[2].sum())} limb samples, "
           f"{int(cands.valid.sum())} accepted candidates, {people} "
           "people; topk_peaks, limb_pair_stats and greedy_assemble "
@@ -836,22 +919,27 @@ def hold_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
 
 def lane_kwargs(sk, thre1, spec):
     """``topk_peaks``', ``limb_pair_stats``' and ``greedy_assemble``'s
-    keyword arguments, and connect_ration, of a fused-lane spec."""
+    keyword arguments, and connect_ration, of a fused-lane spec (of a
+    compact-lane spec, ``greedy_assemble``'s are None)."""
+    if not isinstance(spec[0], tuple):          # the compact lane's
+        spec = (spec, None)
     (thre2, mid_num, radius, topk, connect_ration), asm = spec
     limbs = dict(limbs_from=tuple(a for a, _ in sk.limbs_conn),
                  limbs_to=tuple(b for _, b in sk.limbs_conn))
     return (dict(thre=thre1, k=topk, radius=radius),
             dict(limbs, num_samples=mid_num, thre2=thre2),
-            dict(limbs, num_parts=sk.num_parts,
-                 **dict(zip(("p_max", "len_rate", "connection_tole",
-                             "remove_recon", "min_parts", "min_mean_score"),
-                            asm))),
+            None if asm is None else dict(
+                limbs, num_parts=sk.num_parts,
+                **dict(zip(("p_max", "len_rate", "connection_tole",
+                            "remove_recon", "min_parts", "min_mean_score"),
+                           asm))),
             connect_ration)
 
 
 def hold_lane_call(sk, call, label, smi, tag):
-    """:func:`hold_decode` on one captured ``Predictor.decode_maps`` call
-    (maps, valid_h, valid_w, thre1, spec), as the lane made it."""
+    """:func:`hold_decode` on one captured ``Predictor.decode_maps`` or
+    ``compact_maps`` call (maps, valid_h, valid_w, thre1, spec), as the
+    lane made it."""
     maps, valid_h, valid_w, thre1, spec = call
     hold_decode(sk, maps, valid_h, valid_w, *lane_kwargs(sk, thre1, spec),
                 f"{label} {tuple(maps.shape)}, valid "
@@ -1546,8 +1634,8 @@ def time_decode(sk, maps, valid_h, valid_w, kw_pk, kw_st, kw_asm,
                 connect_ration):
     """Wrapper-call ms (events, median of 20) and device ms (profiler)
     of the three decode kernels on one batch of maps, as phase 3 times
-    them: {kernel: (ms, device_ms)}; a device time the profiler did not
-    record in any window is None (not measured)."""
+    them: {kernel: (ms, device_ms)}; a device time that no profiler
+    window could be read for is None (not measured)."""
     from improved_body_parts_torch.ops import cuda_assembly, cuda_peaks
     from improved_body_parts_torch.ops.peaks import (
         PairStats,
@@ -1627,9 +1715,8 @@ def accuracy_tiers(dev, smi, ctx):
     call (torch's sync debug mode set to error around it).
     (d) the dtype matrix: the trained checkpoint through
     ``checkpoint_predictor`` at fp32, bf16 and int8, the fused-lane AP
-    of each, the stored bytes of each model's parameters and buffers,
-    and ``canonical``'s ``predict_decoded_batch`` imgs/s at batch 8 of
-    480x640 at each dtype; the APs on phase 7's 12 val images and on
+    of each and the stored bytes of each model's parameters and
+    buffers; the APs on phase 7's 12 val images and on
     :data:`DTYPE_VAL_IMAGES` images of the same seed (the first 12 are
     phase 7's).  Gates: fp32 AP on the 12 equal to phase 7's,
     |AP(int8) - AP(bf16)| <= 0.01 on the 48, int8 bytes <= 0.35 x fp32.
@@ -1836,9 +1923,6 @@ def accuracy_tiers(dev, smi, ctx):
           "dtype matrix: the extended val set does not start with phase "
           "7's val images")
     dtype_ap, dtype_ap_more, dtype_bytes = {}, {}, {}
-    serve_rate, serve_bytes = {}, {}
-    batch = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
-             for _ in range(BATCH)]
     for dtype in ("fp32", "bf16", "int8"):
         p = pred if dtype == "fp32" else checkpoint_predictor(
             name_cfg, ckpt, dtype, boxsize=net, device=dev)
@@ -1850,12 +1934,6 @@ def accuracy_tiers(dev, smi, ctx):
             dump_name=f"dtype_{dtype}_more", **kw)["AP"]
         dtype_bytes[dtype] = storage_bytes(p.model)
         del p
-        serve = checkpoint_predictor("canonical", None, dtype, device=dev)
-        serve_bytes[dtype] = storage_bytes(serve.model)
-        serve.predict_decoded_batch(batch)                # warm-up
-        serve_rate[dtype] = BATCH * 1e3 / host_ms(
-            lambda: serve.predict_decoded_batch(batch))
-        del serve
     del pred
     delta = abs(dtype_ap_more["int8"] - dtype_ap_more["bf16"])
     print(f"{tag} dtype matrix, the trained {name_cfg} checkpoint on the "
@@ -1864,10 +1942,8 @@ def accuracy_tiers(dev, smi, ctx):
               f"{d} {dtype_ap[d]:.4f} / {dtype_ap_more[d]:.4f} "
               f"({dtype_bytes[d]} B stored)" for d in dtype_ap)
           + f"; |AP(int8) - AP(bf16)| "
-          f"{abs(dtype_ap['int8'] - dtype_ap['bf16']):.4f} / {delta:.4f}; "
-          f"canonical predict_decoded_batch at batch {BATCH} of 480x640: "
-          + ", ".join(f"{d} {serve_rate[d]:.2f} imgs/s ({serve_bytes[d]} B)"
-                      for d in serve_rate) + f" [{smi}]")
+          f"{abs(dtype_ap['int8'] - dtype_ap['bf16']):.4f} / {delta:.4f} "
+          f"[{smi}]")
     check(dtype_ap["fp32"] == ctx["ap_fused"],
           f"dtype matrix: fp32 AP {dtype_ap['fp32']:.4f} differs from "
           f"phase 7's fused-lane AP {ctx['ap_fused']:.4f}")
@@ -2540,6 +2616,12 @@ def distill_at_full_width(dev, smi, records, work):
     return counts
 
 
+# (d) trains on the first 16 of phase 7's records (8 steps an epoch; cut
+# from all of them, 14 steps an epoch, for the script's time): the
+# schedule's swa_count and the BN freeze do not depend on the epoch's length
+SWA_RECORDS = 16
+
+
 def swa_on_phase7(dev, smi, ctx, work):
     """Phase 9 (d)."""
     import dataclasses
@@ -2564,7 +2646,7 @@ def swa_on_phase7(dev, smi, ctx, work):
     base = restore_checkpoint(ctx["checkpoint"])["model"]
     stats = {k: v for k, v in base.items()
              if k.endswith(("running_mean", "running_var"))}
-    ds = MemoryDataset(ctx["records"], cfg, augment=True,
+    ds = MemoryDataset(ctx["records"][:SWA_RECORDS], cfg, augment=True,
                        seed=SYNTH_AP["seed"])
     before = kernel_launches()
     t0 = time.perf_counter()
@@ -2597,7 +2679,8 @@ def swa_on_phase7(dev, smi, ctx, work):
     for k, n in counts.items():
         check(n > 0, f"SWA: {k} never launched")
     check(ap >= 0.5, f"SWA: averaged weights' AP {ap:.4f} < 0.5")
-    print(f"[9d SWA] {SYNTH_AP['config']}, 2 epochs (swa_freq 2, cyclic "
+    print(f"[9d SWA] {SYNTH_AP['config']}, 2 epochs of {SWA_RECORDS} of "
+          f"phase 7's records (swa_freq 2, cyclic "
           f"1e-5 -> 1e-6, BN frozen) from {ctx['checkpoint']}: "
           f"{report['steps']} steps in {train_s:.1f} s, median step "
           f"{report['step_ms_median']:.2f} ms; BN running stats bit for bit "
@@ -3241,11 +3324,12 @@ def serving_beyond_one_batcher(dev, smi, ctx, stub_maps, planted, work):
 # ---------------------------------------------------------------------- #
 # phase 11: live video streams, and the run telemetry                    #
 # ---------------------------------------------------------------------- #
-# 4 streams of 48 drawn 480x640 frames, 1-2 people each; the fast path's
-# ROI crop keeps the frame's height and half its width
-STREAMS = dict(frames=48, size=(480, 640), people=(1, 2, 1, 2), seed=1100)
+# 4 streams of 32 drawn 480x640 frames (cut from 48 for the script's
+# time), 1-2 people each; the fast path's ROI crop keeps the frame's
+# height and half its width
+STREAMS = dict(frames=32, size=(480, 640), people=(1, 2, 1, 2), seed=1100)
 ROI_WIDTH = 320
-FIT_STEPS = 16
+FIT_STEPS = 8          # cut from 16 for the script's time
 
 
 def stamped(frame, t: int):
@@ -3368,23 +3452,25 @@ def check_streams(outs, label: str, lossless: bool = True) -> dict:
         failed=sum(s["frames_failed"] for s in snaps))
 
 
-def capture_by_shape(pred, store: dict):
-    """``pred.decode_maps`` wrapped to keep a clone of the arguments of
-    its first call at each map (H, W): one batch of each lane bucket the
-    streams ran."""
+def capture_by_shape(pred, store: dict, method: str = "decode_maps",
+                     skip=None):
+    """``pred.<method>`` (``decode_maps``, or ``compact_maps`` for the
+    compact lane) wrapped to keep a clone of the arguments of its first
+    call at each map (H, W) that ``skip(*args)`` (if given) does not
+    reject: one batch of each lane bucket the path ran."""
     import torch
 
-    fn = pred.decode_maps
+    fn = getattr(pred, method)
 
     def wrapper(*args):
         key = tuple(args[0].shape[1:3])
-        if key not in store:
+        if key not in store and not (skip is not None and skip(*args)):
             store[key] = tuple(a.detach().clone()
                                if isinstance(a, torch.Tensor) else a
                                for a in args)
         return fn(*args)
 
-    pred.decode_maps = wrapper
+    setattr(pred, method, wrapper)
 
 
 def history_feed(store) -> dict:
@@ -4953,7 +5039,7 @@ def measure_tools(dev, smi, work):
     rates = {}
     for label, extra in (("bf16", []), ("fp32", ["--fp32"])):
         rates[label] = speed_test.main(base + [
-            "--batch", "8", "--size", str(P14_SIZE), "--iters", "20",
+            "--batch", "8", "--size", str(P14_SIZE), "--iters", "5",
             *extra])
         check(np.isfinite(rates[label]["imgs_per_sec"])
               and rates[label]["imgs_per_sec"] > 0,
@@ -4969,7 +5055,7 @@ def measure_tools(dev, smi, work):
     # (b) the audited FPS beside the FLOPs, a bytes floor and device ms
     audit = perf_audit.main(base + [
         "--size", str(P14_SIZE), "--batches", "1", "8", "--iters", "10",
-        "--repeats", "3",
+        "--repeats", "1",
         "--out", os.path.join(out, "perf_audit_torch.json")])
     for b, e in audit["batches"].items():
         check(e["flags"] == [], f"14b perf_audit batch {b}: {e['flags']}")
@@ -5007,7 +5093,7 @@ def measure_tools(dev, smi, work):
     try:
         bench = train_bench.main(base + [
             "--size", str(P14_SIZE), "--batches", "2", "4", "8",
-            "--steps", "5", "--repeats", "2",
+            "--steps", "5", "--repeats", "1",
             "--out", os.path.join(out, "train_bench_torch.json")])
     finally:
         losses.focal_l2_fused = fused
@@ -5188,7 +5274,7 @@ P15_CKPT = dict(rounds=1, epochs=2, steps=4)
 # child imported torch (~10 s a ring on the card's host, two rings a child)
 P15_CHAOS = dict(kills=2, seed=35, records=8, val_records=4, epochs=4,
                  workers=0)
-P15_FEED = dict(workers="0,2", min_seconds=3, repeats=1)
+P15_FEED = dict(workers="0,2", min_seconds=2, repeats=1)
 P15_FORWARD = (8, 512)          # (a) the seeded canonical forward
 
 
@@ -5492,6 +5578,221 @@ def training_tools(dev, smi, ctx, work):
     print(f"[15 training tools, model I/O] phase took "
           f"{marks[-1][1] - t0:.1f} s ({laps(t0, marks)} s; c ran beside "
           f"a and e)")
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phase 16: the serving tools                                           #
+# --------------------------------------------------------------------- #
+# each tool's main(argv) in this process; every flag not named here takes
+# the JAX tool's default.  Cut: --rounds 2 for both tools (the JAX tools'
+# 5) and --num-images 4 for the A/B (its 6), for the script's time
+P16_CASCADE = ["--teacher-config", "canonical", "--student-config",
+               "canonical_student", "--size", "512", "--rounds", "2"]
+P16_TTA = ["--ab", "--planted", "2", "--config", "canonical", "--size",
+           "128", "--num-images", "4", "--rounds", "2"]
+
+
+def strict_json_lines(path) -> list:
+    """Every line of a JSONL file, parsed as strict JSON (NaN and
+    Infinity refused)."""
+    def refuse(name):
+        raise ValueError(f"{path}: non-finite {name}")
+    with open(path) as f:
+        return [json.loads(line, parse_constant=refuse)
+                for line in f if line.strip()]
+
+
+def cascade_at_full_width(dev, smi, out):
+    """Phase 16 (a): ``cli.cascade_bench`` with a ``canonical_student``
+    student and a ``canonical`` teacher at 512x512.  Gates: the two-tier
+    ledger exact, escalations equal to the hard frames the slices
+    submitted, AP within the tool's tolerance, no first run after warmup,
+    every decode kernel launched, and the three decode kernels bit for
+    bit on each tier's first served batch.  The speed verdict is
+    printed as measured.  Returns the decode launches."""
+    import torch
+
+    from improved_body_parts_torch.cli import cascade_bench
+    from improved_body_parts_torch.config import get_config
+
+    # each tier's first decode_maps call of the served traffic, as the
+    # lane made it: DynamicBatcher.warmup dispatches its batches (zeros,
+    # all easy frames) on its caller's thread, this one; served batches
+    # run on the batchers' dispatcher threads
+    calls, make = {}, cascade_bench.tiered_predictor
+
+    def on_this_thread(*_):
+        return threading.current_thread() is threading.main_thread()
+
+    def tier(cfg, *rest):
+        pred = make(cfg, *rest)
+        capture_by_shape(pred, calls.setdefault(cfg.name, {}),
+                         skip=on_this_thread)
+        return pred
+
+    reset_launches()
+    cascade_bench.tiered_predictor = tier
+    try:
+        rep = cascade_bench.main(P16_CASCADE + [
+            "--device", dev.type,
+            "--out", os.path.join(out, "cascade_bench_torch.json")])
+    finally:
+        cascade_bench.tiered_predictor = make
+    launches = read_launches()
+
+    cons, routing = rep["cascade_conservation"], rep["cascade_routing"]
+    check(cons["exact"] and cons["depth"] == 0 and cons["failed"] == 0,
+          f"16a cascade_bench: the ledger {cons}")
+    # the hard frames the interleaved cascade slices submitted, from the
+    # stream indices run_slice takes
+    clients = rep["clients"]
+    layout = cascade_bench.stream_layout(rep["hard_frac_requested"])
+    hard = rep["rounds"] * sum(layout[j] for j in cascade_bench.slice_indices(
+        clients, rep["requests_per_slice"] // clients, len(layout)))
+    check(routing["escalated_teacher"] == hard
+          and sum(routing["escalations"].values()) == hard
+          and routing["degraded_student_answer"] == 0,
+          f"16a cascade_bench: {routing['escalated_teacher']} escalated "
+          f"({routing['escalations']}, degraded "
+          f"{routing['degraded_student_answer']}) against {hard} hard frames "
+          "submitted")
+    check(rep["quality"]["within_tolerance"],
+          f"16a cascade_bench: AP {rep['quality']}")
+    check(rep["recompiles_post_warmup"] == 0, f"16a cascade_bench: "
+          f"{rep['recompiles_post_warmup']} first runs after warmup")
+    for k, n in launches.items():
+        check(n > 0, f"16a cascade_bench: {k} never launched")
+    sk = get_config(rep["teacher_config"]).skeleton
+    for name in (rep["student_config"], rep["teacher_config"]):
+        check(calls.get(name), f"16a: no served batch of the {name} tier "
+              "captured")
+        for call in calls[name].values():
+            hold_lane_call(sk, call, f"cascade_bench's {name} tier", smi,
+                           tag="[16a cascade_bench]")
+    hops = {t: ", ".join(f"{h} {v['p50']}" for h, v in hs.items())
+            for t, hs in rep["hops_ms"].items()}
+    print(f"[16a cascade_bench] {rep['student_config']} -> "
+          f"{rep['teacher_config']} at "
+          f"{rep['size']}^2, {rep['clients']} clients x "
+          f"{rep['requests_per_slice'] // clients} requests, "
+          f"{rep['rounds']} rounds: median round ratio "
+          f"{rep['median_round_ratio']} against the target "
+          f"{rep['target_ratio']} (beats it: {rep['cascade_beats_target']}"
+          f"; per round {rep['per_round_ratio']}); cascade "
+          f"{rep['cascade_imgs_per_sec']} vs teacher-only "
+          f"{rep['teacher_only_imgs_per_sec']} imgs/s; p95 "
+          f"{rep['cascade_p95_ms']} / {rep['teacher_only_p95_ms']} ms; "
+          f"escalation rate {rep['escalation_rate']} ({hard} hard frames "
+          f"submitted, {routing['escalated_teacher']} escalated); ledger "
+          f"{cons}; AP {rep['quality']['cascade_synthetic_ap']} / "
+          f"{rep['quality']['teacher_only_synthetic_ap']}; decode launches "
+          f"{launches} [{smi}]")
+    print("[16a cascade_bench] hop p50 ms: "
+          + "; ".join(f"{t}: {h}" for t, h in hops.items()) + f" [{smi}]")
+    del calls
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tta_gate_at_full_width(dev, smi, out):
+    """Phase 16 (b): ``cli.tta_bench --ab --planted 2`` on ``canonical``
+    at 128x128 over the 3 x 3 grid.  Gates: payloads equal on every
+    image, AP parity, 1 fused and 10 looped dispatches an image, no first
+    run after warmup, the events file strict JSON with one
+    ``tta_ab_round`` a round and one ``tta_ab_verdict``, the exit code
+    the JAX tool's rule applied to the artifact (1 exactly when the
+    binding speedup gate is missed), and ``topk_peaks`` and
+    ``limb_pair_stats`` bit for bit on the grid's first compact call.
+    The speed verdict is printed as measured.  Returns the decode
+    launches."""
+    from improved_body_parts_torch.cli import tta_bench
+    from improved_body_parts_torch.config import get_config
+
+    # the grid's first compact_maps call, on the parity pass (the same
+    # images and arms as the timed rounds)
+    calls, report = {}, tta_bench.ab_report
+
+    def capturing(pred, *rest, **kw):
+        capture_by_shape(pred, calls, method="compact_maps")
+        return report(pred, *rest, **kw)
+
+    path = os.path.join(out, "tta_ab_torch.json")
+    reset_launches()
+    tta_bench.ab_report = capturing
+    try:
+        tta_bench.main(P16_TTA + ["--device", dev.type, "--out", path])
+        code = "returned"           # --ab ends in SystemExit
+    except SystemExit as e:
+        code = e.code
+    finally:
+        tta_bench.ab_report = report
+    launches = read_launches()
+    with open(path) as f:
+        art = json.loads(f.read(), parse_constant=lambda name: fail(
+            f"16b tta_bench: non-finite {name} in the artifact"))
+    n = art["grid_entries"]
+    check(art["payload_equal_all_images"],
+          f"16b tta_bench: payloads differ {art['payload_equal_per_image']}")
+    check(art["ap_parity"]["equal"], f"16b tta_bench: AP parity "
+          f"{art['ap_parity']}")
+    check(n == 9 and set(art["fused_dispatches_per_image"]) == {1}
+          and art["median_fused_dispatches_per_image"] == 1.0
+          and set(art["looped_dispatches_per_image"]) == {n + 1}
+          and art["median_looped_dispatches_per_image"] == n + 1,
+          f"16b tta_bench: {n} entries, dispatches fused "
+          f"{art['fused_dispatches_per_image']} looped "
+          f"{art['looped_dispatches_per_image']}")
+    check(art["recompiles_post_warmup"] == 0,
+          f"16b tta_bench: {art['recompiles_post_warmup']} first runs after "
+          "warmup")
+    events = strict_json_lines(art["telemetry_events"])
+    kinds = [e["event"] for e in events]
+    check(kinds.count("tta_ab_round") == art["rounds"]
+          and kinds.count("tta_ab_verdict") == 1,
+          f"16b tta_bench: events {kinds}")
+    check(art["fused_speedup_gate_binding"], "16b tta_bench: the gate does "
+          "not bind on the card")
+    want = 0 if tta_bench.ab_ok(art) else 1
+    check(code == want, f"16b tta_bench: exit code {code}, the verdict on "
+          f"its artifact gives {want}")
+    for k in ("topk_peaks", "limb_pair_stats"):
+        check(launches[k] > 0, f"16b tta_bench: {k} never launched")
+    check(calls, "16b tta_bench: no compact_maps call captured")
+    for call in calls.values():
+        hold_lane_call(get_config(art["config"]).skeleton, call,
+                       "tta_bench --ab's grid", smi,
+                       tag="[16b tta_bench --ab]")
+    print(f"[16b tta_bench --ab] {art['config']}, {art['images']} images of "
+          f"{art['size']}^2, planted {art['planted_people']}, grid "
+          f"{art['scale_search']} x {art['rotation_search']}: payloads equal "
+          f"on every image, AP parity {art['ap_parity']}; dispatches fused "
+          f"1 / looped {n + 1}; median fused speedup "
+          f"{art['median_fused_speedup']} (per round "
+          f"{art['per_round_fused_speedup']}) against the gate "
+          f"{art['fused_speedup_gate']}, binding: sustained "
+          f"{art['fused_speedup_sustained']}; fused "
+          f"{art['fused_ms_per_image']:.2f} vs looped "
+          f"{art['looped_ms_per_image']:.2f} ms an image (phase 8's grids "
+          f"above, on the trained synth_canonical); exit code {code} = the "
+          f"verdict's; {kinds.count('tta_ab_round')} round events and the "
+          f"verdict event; compact-lane launches {launches} [{smi}]")
+    return launches
+
+
+def serving_tools(dev, smi, work):
+    """Phase 16: the serving tools at full width, each ``main(argv)`` in
+    this process: (a) :func:`cascade_at_full_width`, (b)
+    :func:`tta_gate_at_full_width`.  Returns the launches by path."""
+    t0 = time.perf_counter()
+    out = os.path.join(work, "p16")
+    os.makedirs(out, exist_ok=True)
+    launches = {"cascade_bench": cascade_at_full_width(dev, smi, out)}
+    marks = [("a", time.perf_counter())]
+    launches["tta_ab"] = tta_gate_at_full_width(dev, smi, out)
+    marks.append(("b", time.perf_counter()))
+    print(f"[16 serving tools] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
     return launches
 
 
@@ -5817,6 +6118,8 @@ def main() -> int:
         streams.update(measure_tools(dev, smi, work))
         # ------------- 15. the training tools and model I/O
         streams.update(training_tools(dev, smi, trained, work))
+        # ------------------------------- 16. the serving tools
+        streams.update(serving_tools(dev, smi, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -24,8 +24,10 @@
   FLOP count, a bytes floor and the profiler's device ms),
   ``cli.train_bench`` (the train step over a batch sweep),
   ``cli.e2e_bench`` (forward plus decode to skeletons in every
-  inference mode) and ``cli.serve_bench`` (the batcher against
-  sequential serving, and the thread- vs process-pool A/B).
+  inference mode), ``cli.serve_bench`` (the batcher against
+  sequential serving, and the thread- vs process-pool A/B) and
+  ``cli.cascade_bench`` (student-first cascade serving against
+  teacher-only on a mixed easy / hard stream).
 
 Each runs on ``--device cuda`` unless asked for ``cpu``, and prints, as
 its last report, one line ``CLI_REPORT {json}`` with the device it ran on
@@ -79,15 +81,29 @@ def parse_reports(stdout: str) -> list:
             if line.startswith(REPORT_PREFIX)]
 
 
-def refuse_artifact(path: str, names: Iterable[str]) -> None:
+def refuse_artifact(path: str, names: Iterable[str],
+                    flag: str = "--out") -> None:
     """Exit with an error when ``path``'s file name matches one of
     ``names`` (fnmatch patterns): the artifacts of the JAX package's
-    tools, which the port's tools never write."""
+    tools, which the port's tools never write.  ``flag`` names the
+    option the path came from."""
     base = os.path.basename(path)
     for pattern in names:
         if fnmatch.fnmatchcase(base, pattern):
-            raise SystemExit(f"--out {path}: {pattern} is the JAX tool's "
+            raise SystemExit(f"{flag} {path}: {pattern} is the JAX tool's "
                              "artifact; pick another name")
+
+
+def refuse_synth_ap_artifact(path: str) -> None:
+    """Exit with an error when ``path``'s file name is a ``SYNTH_AP*.json``
+    without ``_TORCH`` in it: the names the JAX package's ``synth_ap`` and
+    ``swa_stage`` write (``SYNTH_AP_TORCH.json`` and the
+    ``*_TORCH_S<n>.json`` names ``cli.ab_summary`` reads stay allowed)."""
+    base = os.path.basename(path)
+    if fnmatch.fnmatchcase(base, "SYNTH_AP*.json") and "_TORCH" not in base:
+        raise SystemExit(f"--out {path}: a SYNTH_AP*.json name without "
+                         "_TORCH is the JAX tool's artifact; pick another "
+                         "name")
 
 
 def sync(device: torch.device) -> None:

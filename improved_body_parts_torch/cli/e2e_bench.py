@@ -73,6 +73,20 @@ def synth_images(n: int, size: int, rng) -> list:
     return imgs
 
 
+#: the stick figure of the planted people: each part's (dx, dy) offset
+#: from the figure's anchor, in units of its height (``cli.cascade_bench``
+#: plants the same figure)
+STICK_LAYOUT = (("nose", 0, 0.12), ("neck", 0, 0.21), ("Rsho", -0.09, 0.22),
+                ("Lsho", 0.09, 0.22), ("Relb", -0.13, 0.33),
+                ("Lelb", 0.13, 0.33), ("Rwri", -0.14, 0.43),
+                ("Lwri", 0.14, 0.43), ("Rhip", -0.05, 0.45),
+                ("Lhip", 0.05, 0.45), ("Rkne", -0.06, 0.59),
+                ("Lkne", 0.06, 0.59), ("Rank", -0.06, 0.72),
+                ("Lank", 0.06, 0.72), ("Reye", -0.02, 0.10),
+                ("Leye", 0.02, 0.10), ("Rear", -0.04, 0.11),
+                ("Lear", 0.04, 0.11))
+
+
 def plant(skeleton, n_people, rng, canvas=1024):
     """(joints, maps) of N synthetic stick people: joints (N, num_parts,
     3) in canvas px, and their stride-grid GT maps (the data pipeline's
@@ -83,21 +97,12 @@ def plant(skeleton, n_people, rng, canvas=1024):
     sk = dataclasses.replace(skeleton, width=canvas, height=canvas)
     joints = np.zeros((n_people, sk.num_parts, 3), np.float32)
     joints[:, :, 2] = 2
-    layout = [("nose", 0, 0.12), ("neck", 0, 0.21), ("Rsho", -0.09, 0.22),
-              ("Lsho", 0.09, 0.22), ("Relb", -0.13, 0.33),
-              ("Lelb", 0.13, 0.33), ("Rwri", -0.14, 0.43),
-              ("Lwri", 0.14, 0.43), ("Rhip", -0.05, 0.45),
-              ("Lhip", 0.05, 0.45), ("Rkne", -0.06, 0.59),
-              ("Lkne", 0.06, 0.59), ("Rank", -0.06, 0.72),
-              ("Lank", 0.06, 0.72), ("Reye", -0.02, 0.10),
-              ("Leye", 0.02, 0.10), ("Rear", -0.04, 0.11),
-              ("Lear", 0.04, 0.11)]
     region = canvas * 0.6
     for p in range(n_people):
         cx = rng.uniform(0.2, 0.8) * region
         scale = rng.uniform(0.5, 0.8) * region
         y0 = rng.uniform(0.0, 0.2) * region
-        for name, dx, dy in layout:
+        for name, dx, dy in STICK_LAYOUT:
             joints[p, sk.parts_dict[name]] = [cx + dx * scale,
                                               y0 + dy * scale, 1]
     maps = Heatmapper(sk).create_heatmaps(

@@ -2,9 +2,11 @@
 (counterpart of ``tools/swa_stage.py``)::
 
     python -m improved_body_parts_torch.cli.synth_ap --config synth_deep \\
-        --seed 1 --workdir WORK --keep-workdir --out SYNTH_AP_S1.json
+        --seed 1 --workdir WORK --keep-workdir \\
+        --out SYNTH_AP_DEEP_TORCH_S1.json
     python -m improved_body_parts_torch.cli.swa_stage --workdir WORK \\
-        --config synth_deep --base SYNTH_AP_S1.json --out SYNTH_AP_SWA_S1.json
+        --config synth_deep --base SYNTH_AP_DEEP_TORCH_S1.json \\
+        --out SYNTH_AP_DEEP_SWA_TORCH_S1.json
 
 Continues the workdir's last committed checkpoint through the reference's
 SWA protocol (``cli.train --swa --resume auto``: cyclic LR, frozen BN,
@@ -13,7 +15,9 @@ averaged weights on the workdir's held-out val set with the evaluate CLI
 (OKS evaluator) and writes one strict JSON artifact: ``ap_swa``, and with
 ``--base`` the base run's ``ap_trained`` as ``ap_base`` and the delta.
 Both CLIs run as subprocesses on ``--device`` (``cuda`` unless asked for
-``cpu``); their ``CLI_REPORT`` lines ride in the artifact.
+``cpu``); their ``CLI_REPORT`` lines ride in the artifact.  The artifact
+defaults to ``SYNTH_AP_SWA_TORCH.json``; a ``SYNTH_AP*.json`` name
+without ``_TORCH`` (the JAX tool's) is refused before any work.
 """
 from __future__ import annotations
 
@@ -44,13 +48,15 @@ def main(argv=None):
                     choices=sorted(DECODE_FLAGS))
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
-    ap.add_argument("--out", default="SYNTH_AP_SWA.json")
+    ap.add_argument("--out", default="SYNTH_AP_SWA_TORCH.json")
     args = ap.parse_args(argv)
 
+    from . import parse_reports, refuse_synth_ap_artifact
+
+    refuse_synth_ap_artifact(args.out)
     from ..config import get_config
     from ..obs.events import strict_dump, strict_dumps
     from ..train import latest_checkpoint, read_commit_meta
-    from . import parse_reports
 
     work = os.path.abspath(args.workdir)
     ckpt_dir = os.path.join(work, "ckpt")

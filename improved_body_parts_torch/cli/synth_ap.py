@@ -11,8 +11,10 @@ evaluates the last committed checkpoint with the port's evaluate CLI
 (OKS evaluator, ``--boxsize`` = the network size), and evaluates a
 fresh-init checkpoint of the same seed for contrast.  The CLIs run as
 subprocesses on ``--device`` (``cuda`` unless asked for ``cpu``).  Writes
-one strict JSON artifact (``--out``) with the JAX tool's keys, plus each
-CLI's ``CLI_REPORT`` (device, kernel launches, timings).
+one strict JSON artifact (``--out``, default ``SYNTH_AP_TORCH.json``; a
+``SYNTH_AP*.json`` name without ``_TORCH``, the JAX tool's, is refused
+before any work) with the JAX tool's keys, plus each CLI's
+``CLI_REPORT`` (device, kernel launches, timings).
 
 ``--decode-path``: ``full`` (the host full-map protocol,
 ``Predictor.predict``), ``fast`` (full maps, host decode), ``compact``
@@ -141,11 +143,13 @@ def main(argv=None):
                          "(default) or 'cpu'")
     args = ap.parse_args(argv)
 
+    from . import parse_reports, refuse_synth_ap_artifact
+
+    refuse_synth_ap_artifact(args.out)
     from ..config import get_config
     from ..data.fixture import build_fixture, build_val_set
     from ..obs.events import strict_dump, strict_dumps
     from ..train import latest_checkpoint
-    from . import parse_reports
 
     work = os.path.abspath(args.workdir or tempfile.mkdtemp(
         prefix="synth_ap_"))

@@ -757,7 +757,9 @@ class Predictor:
         made, scale-major, rotation-minor; looped, each entry is a call
         of its own (its image uploaded again), its map kept, and a last
         call averages them in the same order.  Either way nothing is read
-        back before the caller fetches the row."""
+        back before the caller fetches the row.  The first dispatch of a
+        (grid, image shape, form) combination is reported to
+        ``obs.recompile`` as ``_run_chunk``'s first runs are."""
         if self.mesh is not None:
             raise ValueError(
                 "predict_compact_ms does not support the spatial sharding "
@@ -777,6 +779,10 @@ class Predictor:
         angles = tuple(prm.rotation_search)
         spec = self._decode_spec(prm) if mode == "decode" \
             else self._compact_spec(prm)
+        key = ("grid", mode, fused, (oh, ow), tuple(prm.scale_search),
+               angles, thre1, spec)
+        first = key not in self._warmed
+        t0 = time.perf_counter()
         with self._device_scope(), torch.inference_mode():
             if fused:
                 self.dispatch_count += 1
@@ -796,6 +802,11 @@ class Predictor:
                 self.dispatch_count += len(entries) + 1
                 packed = self._grid_average(entries, grid, thre1, spec,
                                             mode)
+        self._warmed.add(key)
+        if first:
+            from ..obs.recompile import report_first_run
+
+            report_first_run(time.perf_counter() - t0, key=key[:4])
         return packed, grid[0], (ow / grid[1], oh / grid[0])
 
     def _grid_entry(self, img: torch.Tensor, valid: Tuple[int, int],

@@ -7,7 +7,8 @@ the JAX package's, on the CPU.
 - A tiny student -> teacher cascade in both packages: the ``tiny`` IMHN
   on weights converted from one seeded Flax tree, behind a planted-maps
   wrapper (the JAX package's ``tools/cascade_bench.py``
-  ``TieredPlantedModel`` and its torch twin here): dark frames carry
+  ``TieredPlantedModel`` and the port's ``cli.cascade_bench``
+  ``TieredPlantedModel``): dark frames carry
   one planted person, bright ones two on the student, one on the
   teacher.  With ``max_people=1`` the same frames escalate in both
   packages, each answer equals its tier's direct answer, and the port's
@@ -116,39 +117,6 @@ def test_cascade_metrics_exposition_names():
 # --------------------------------------------------------------------- #
 # the tiny two-tier pair                                                #
 # --------------------------------------------------------------------- #
-def _mirror(m, sk):
-    """Width-flipped, channel-permuted maps: the mirror lane's view."""
-    perm = list(sk.flip_paf_ord) + [sk.heat_start + i
-                                    for i in sk.flip_heat_ord]
-    return m[..., perm].flip(1)
-
-
-class TieredTorch(torch.nn.Module):
-    """The torch twin of ``tools/cascade_bench.py``'s
-    ``TieredPlantedModel``: the network's last-stack output times 1e-3
-    plus the easy or the hard planted maps, chosen by each lane's
-    brightness; mirror lanes get the mirrored maps, so the flip merge
-    returns the planted people."""
-
-    def __init__(self, model, easy, hard, sk, bright_thresh=0.5):
-        super().__init__()
-        self.model, self.sk, self.bright_thresh = model, sk, bright_thresh
-        self.easy = torch.from_numpy(easy)
-        self.hard = torch.from_numpy(hard)
-
-    def forward(self, imgs):
-        out = self.model(imgs)[-1][0]
-        gh, gw = out.shape[1], out.shape[2]
-        e, h = self.easy[:gh, :gw], self.hard[:gh, :gw]
-        em, hm = _mirror(e, self.sk), _mirror(h, self.sk)
-        bright = imgs.mean(dim=(1, 2, 3)) > self.bright_thresh
-        n = out.shape[0] // 2
-        sel = bright[:, None, None, None]
-        straight = torch.where(sel[:n], h[None], e[None]) + 1e-3 * out[:n]
-        mirror = torch.where(sel[n:], hm[None], em[None]) + 1e-3 * out[n:]
-        return [[torch.cat([straight, mirror], dim=0)]]
-
-
 @functools.lru_cache(maxsize=None)
 def _weights():
     """The tiny IMHN's seeded Flax tree and the port's model on it."""
@@ -186,6 +154,7 @@ def tier_predictors(kinds, replicas=1):
 
     from improved_body_parts_tpu.config import InferenceModelParams
     from improved_body_parts_tpu.infer import Predictor as JPredictor
+    from improved_body_parts_torch.cli import cascade_bench as port_bench
     from improved_body_parts_torch.infer import Predictor
 
     jmodel, variables, model = _weights()
@@ -194,7 +163,8 @@ def tier_predictors(kinds, replicas=1):
                          variables, SK, model_params=InferenceModelParams(
                              boxsize=SIZE, max_downsample=64), bucket=64)
               for _ in range(replicas)]
-    tpreds = [Predictor(TieredTorch(model, easy, hard, SK), SK,
+    tpreds = [Predictor(port_bench.TieredPlantedModel(model, easy, hard,
+                                                      SK), SK,
                         model_params=tconfig.InferenceModelParams(
                             boxsize=SIZE, max_downsample=64), bucket=64,
                         device="cpu") for _ in range(replicas)]
