@@ -3,8 +3,8 @@
 learn->AP loop, the accuracy tiers of inference, serving beyond one
 batcher (replica pool, cascade, process router), live video streams
 with the run telemetry, multi-card training, height-sharded inference,
-the tools that measure the port, the training tools and model I/O, and
-the serving tools.
+the tools that measure the port, the training tools and model I/O, the
+serving tools, and the fleet plane.
 
     python3 chip_smoke.py
 
@@ -261,7 +261,9 @@ released before phase 6, so phase 6's peak memory is its own;
    6's and the device busy share with its kernel groups (profiler); the
    focal kernels against their plain versions on the first step's calls.
    (b) two gloo ranks over CUDA tensors on the one card (NCCL refuses
-   two ranks on one device), spawned: DDP ``replicated`` on float64
+   two ranks on one device), spawned while this process runs the plain
+   steps (their own steps wait for those), and kept for 13(b), so one
+   start of two processes serves both: DDP ``replicated`` on float64
    ``canonical`` at 2 rows a rank, against the plain float64 step on the
    same 4 rows: first-step loss within rel 1e-5, reduced grad norm within
    rel 1e-3, cross-rank BN running stats within 1e-5, the two ranks'
@@ -275,8 +277,8 @@ released before phase 6, so phase 6's peak memory is its own;
    spatial``), in fp32 with bf16 autocast and TF32 off in both arms:
    (a) a one-rank NCCL mesh (1, 1): phase 7's checkpoint through
    ``predict_decoded`` on the 12 val images, every payload equal to the
-   plain predictor's bit for bit.  (b) two gloo ranks over CUDA tensors
-   on card 0, spawned: ``canonical`` (seeded, 128,998,760 parameters) on
+   plain predictor's bit for bit.  (b) 12(b)'s two gloo ranks over CUDA
+   tensors on card 0: ``canonical`` (seeded, 128,998,760 parameters) on
    one 1536x768 image at boxsize 1536 over mesh (1, 2) (24 bottom rows,
    12 a rank), ``predict``'s maps within 1e-3 x their max of the
    one-process plain predictor's, each rank's peak memory and ms an
@@ -320,8 +322,9 @@ released before phase 6, so phase 6's peak memory is its own;
    (e) ``cli.serve_bench --sizes 512 --requests 4 --clients 1,4
    --baseline-clients 4 --rounds 1 --planted 2`` (the sequential arms at
    the batcher's peak load) (``hop_conservation_frac`` >= 0.95 on every
-   arm), then ``--proc-only --proc-rounds 1`` (every future of the chaos
-   arm resolved, the SIGKILLed worker respawned).  Its rates prove the
+   arm; its event stream, with the request records, kept for 17(c)),
+   then ``--proc-only --proc-rounds 1`` (every future of the chaos arm
+   resolved, the SIGKILLed worker respawned).  Its rates prove the
    tools run; at these request counts they are not baselines.
 15. the training tools and model I/O at full width, (b) first on a
    quiet card, then (c) with its children beside (a) and (e), then (d)
@@ -367,6 +370,32 @@ released before phase 6, so phase 6's peak memory is its own;
    when the binding speedup gate is missed), and ``topk_peaks`` and
    ``limb_pair_stats`` bit for bit against their plain versions on the
    grid's first compact call; the speed verdict printed as measured.
+17. the fleet plane at full width, in this process: (a)
+   ``cli.fleet_audit --predictor model --config synth_canonical
+   --checkpoint <phase 7's> --params-dtype fp32 --size 192 --rounds 2
+   --clients 4 --requests 4 --keep-workdir`` (``main(argv)``; the A/B's
+   two routers of 2 workers, each building ``checkpoint_predictor`` of
+   the canonical architecture, 128,998,760 parameters, on the card, and
+   the JAX tool's constant-predictor chaos router of 2, all started
+   together; a trained model, as the seeded init kept no peak on seeded
+   images, which left (b)'s hold nothing to hold): the conservation,
+   compiles, scrape, trace-stitch
+   and chaos gates ``ok``, the overhead verdict its rule (``ok`` iff the
+   paired median < 2.0) on the printed per-round imgs/s, the exit code 1
+   exactly when the report's ``ok`` is false and its ``CLI_REPORT`` line
+   last; (b) phase 7's first 4 val images, halved to fit the 192x192
+   wire (the boxsize scales them back), served one at a time through the
+   audit's ON router (its ``serve_hook``): their person tables equal to
+   ``checkpoint_predictor``'s (the same checkpoint, fp32) in this
+   process behind a ``DynamicBatcher`` at max_batch 1, each decode kernel
+   launched once a request served after warmup in both of the ON arm's
+   worker generations (the audit's report, from the workers'
+   ``worker_warm`` / ``worker_stop`` events), and the three decode
+   kernels bit for bit on this process's first
+   batch; (c) ``cli.trace_report`` on the audit's kept trace: 2 worker
+   shards stitched, flow starts, steps and finishes > 0, the Perfetto
+   file written; ``cli.request_report --strict`` on 14(e)'s event
+   stream: exit 0, no orphan or duplicate, chain coverage >= 0.95.
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -380,7 +409,8 @@ phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
 ``spatial`` and ``distill_multi_rank``, phase 14's as ``train_bench``,
 ``e2e_bench`` and ``serve_bench``, phase 15's as ``upstream_import``
 and ``ckpt_bench``, phase 16's as ``cascade_bench`` and ``tta_ab`` (the
-grid's compact lane: no assembly); the focal kernels' device ms a
+grid's compact lane: no assembly), phase 17's as ``fleet_audit`` (the
+workers' launches after warmup); the focal kernels' device ms a
 step at ``ae``'s and
 ``final_384``'s shapes as ``ae_shape_device_ms`` and
 ``final_384_shape_device_ms`` (inputs rotated past the L2), with
@@ -3116,41 +3146,13 @@ def cascade_tiers(dev, smi, ctx, val):
     return launches
 
 
-def read_worker_generations(paths) -> list:
-    """One record a spawned worker generation in the event shards: its
-    pid, and, where it reached ``worker_stop``, the requests it served
-    and each decode kernel's launches after its warmup (``worker_stop``
-    minus ``worker_warm``); a generation killed before its stop has
-    ``stopped`` False and no counts."""
-    gens = []
-    for path in paths:
-        with open(path) as f:
-            for line in f:
-                rec = json.loads(line)
-                if rec["event"] == "run_start":
-                    gen = {"pid": None, "stopped": False}
-                    gens.append(gen)
-                    warm = {"served": 0, "kernel_launches": {
-                        k: 0 for k in DECODE_KERNELS}}
-                elif rec["event"] == "worker_start":
-                    gen["pid"] = rec["pid"]
-                elif rec["event"] == "worker_warm":
-                    warm = rec
-                elif rec["event"] == "worker_stop":
-                    gen.update(stopped=True,
-                               served=rec["served"] - warm["served"],
-                               launches={k: rec["kernel_launches"][k]
-                                         - warm["kernel_launches"][k]
-                                         for k in DECODE_KERNELS})
-    return gens
-
-
 def process_router(dev, smi, ctx, val, reps, work):
     """Phase 10(c): ``ProcessRouter`` of 2 spawned workers, each building
     ``serve.artifacts:checkpoint_predictor`` on the card from a JSON
     spec.  Returns the workers' decode launches."""
     import signal
 
+    from improved_body_parts_torch.cli import fleet_audit
     from improved_body_parts_torch.obs import Registry
     from improved_body_parts_torch.obs.fleet import verify_postmortem
     from improved_body_parts_torch.serve import (
@@ -3169,11 +3171,6 @@ def process_router(dev, smi, ctx, val, reps, work):
     burst = [rng.integers(0, 256, (*BURST_SHAPE, 3), dtype=np.uint8)
              for _ in range(32)]
 
-    # the in-process pool at the workers' batch (1)
-    with EnginePool([DynamicBatcher(r, max_batch=1, max_wait_ms=1)
-                     for r in reps], wedge_timeout_s=WEDGE_S) as pool:
-        pool.warmup(sizes, batch_sizes=(1,))
-        ref = drive(pool, images, clients=2)
     reg = Registry()
     t0 = time.perf_counter()
     router = ProcessRouter(spec, num_workers=2, spec_kwargs=kw,
@@ -3184,7 +3181,14 @@ def process_router(dev, smi, ctx, val, reps, work):
                            warmup_timeout_s=300.0)
     router.register_into(reg)
     try:
+        # the workers start beside the in-process reference, which
+        # times nothing: the pool at the workers' batch (1)
         router.start()
+        with EnginePool([DynamicBatcher(r, max_batch=1, max_wait_ms=1)
+                         for r in reps], wedge_timeout_s=WEDGE_S) as pool:
+            pool.warmup(sizes, batch_sizes=(1,))
+            ref = drive(pool, images, clients=2)
+        ref_s = time.perf_counter() - t0
         router.warmup(sizes, batch_sizes=[1])
         start_s = time.perf_counter() - t0
         pids = [w.worker_stats()["pid"] for w in router.workers]
@@ -3261,7 +3265,8 @@ def process_router(dev, smi, ctx, val, reps, work):
         router.stop(drain_timeout_s=60.0)
     check(m.failed == 0 and counters["failovers"] >= 1,
           f"router: failed {m.failed}, failovers {counters['failovers']}")
-    gens = read_worker_generations([f"{sink}.p{i + 1}" for i in range(2)])
+    gens = fleet_audit.worker_generations(
+        [f"{sink}.p{i + 1}" for i in range(2)])
     stopped = [g for g in gens if g["stopped"]]
     killed = [g["pid"] for g in gens if not g["stopped"]]
     check(len(stopped) == 2 and killed == [pids[0]],
@@ -3278,7 +3283,9 @@ def process_router(dev, smi, ctx, val, reps, work):
                          s.person_overflow))
                     for _, s in got + again if s is not None)
     print(f"[10c router] 2 spawned workers, checkpoint_predictor on cuda "
-          f"from a JSON spec: started and warmed in {start_s:.2f} s (pids "
+          f"from a JSON spec: warmed {start_s:.2f} s after their spawn, "
+          f"beside the in-process reference pool's {ref_s:.2f} s (this "
+          f"process waited {start_s - ref_s:.2f} s for them; pids "
           f"{pids}); {len(images)} val person tables equal bit for bit to "
           f"the in-process pool's at max_batch 1; burst of 32 from 4 "
           f"threads {32 / wall:.2f} imgs/s, e2e p50 {pct(lat, 50):.2f} ms, "
@@ -4105,90 +4112,173 @@ def bn_one_rank(dev, smi, batch):
     torch.cuda.empty_cache()
 
 
-def p12_rank(rank: int, coord: str, batch, ckpt_dir: str, out) -> None:
-    """12(b): one of two gloo ranks over CUDA tensors on card 0.  Runs
-    the first step of each of ``P12_ARMS`` on its 2 rows, and saves the
-    float64 arm's state (rank 0 writes).  Puts its numbers on ``out``."""
+def p12_rank(rank: int, dev, batch, ckpt_dir: str) -> dict:
+    """12(b) on one of the two gloo ranks of :class:`RankPair`: the first
+    step of each of ``P12_ARMS`` on its 2 rows, and the float64 arm's
+    state saved (rank 0 writes).  Returns its numbers."""
+    import hashlib
+
+    import torch
+
+    from improved_body_parts_torch.ops import losses
+    from improved_body_parts_torch.parallel import (
+        get_ruleset,
+        make_mesh,
+        mesh_topology,
+        shard_batch,
+    )
+    from improved_body_parts_torch.train import CheckpointManager
+
+    mesh = make_mesh(2, 1, device="cuda")
+    res = {}
+    for kind, rules in P12_ARMS:
+        state, step = p12_state(kind, dev, mesh, get_ruleset(rules))
+        full = {n: tuple(p.shape)
+                for n, p in state.model.named_parameters()}
+        calls, fused = [], losses.focal_l2_fused
+        if not res:
+            losses.focal_l2_fused = first_calls(fused, 5, calls)
+        reset_focal()
+        try:
+            state, loss, gnorm = step(state, *shard_batch(batch, mesh))
+        finally:
+            losses.focal_l2_fused = fused
+        rec = dict(loss=float(loss), gnorm=float(gnorm),
+                   launches=focal_counts())
+        if calls:
+            hold_focal(calls, torch.tensor(
+                p12_config(kind).train.nstack_weight, device=dev) * 0.25,
+                f"rank {rank}'s calls at the per-rank shape",
+                tag="[12b two ranks]")
+        if state.sharding is not None:
+            # every split parameter and its momentum hold their chunk
+            names = {id(p): n for n, p in
+                     state.model.named_parameters()}
+            moms = dict(zip(map(id, state.optimizer.params),
+                            state.optimizer.momentum))
+            chunks = []
+            for sp in state.sharding.splits:
+                want = list(full[names[id(sp.param)]])
+                want[sp.dim] //= sp.shards
+                chunks.append(tuple(sp.param.shape) == tuple(want)
+                              and tuple(moms[id(sp.param)].shape)
+                              == tuple(want))
+            rec["split"] = (len(chunks), all(chunks))
+        if kind == "float64":
+            manager = CheckpointManager(ckpt_dir, async_save=False,
+                                        topology=mesh_topology(mesh))
+            manager.save(state, 0, float(loss), float(loss))
+            manager.close()
+            torch.distributed.barrier()
+            h = hashlib.sha256()
+            for k, v in state.model.state_dict().items():
+                h.update(k.encode())
+                h.update(v.detach().cpu().contiguous().numpy()
+                         .tobytes())
+            rec["sha256"] = h.hexdigest()
+        # numpy, not tensors: a tensor crosses the queue as a handle
+        # to this process's shared memory, gone once the rank exits
+        if rank == 0:
+            rec["bn"] = bn_stats(state)
+        res[(kind, rules)] = rec
+        del state, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def pair_rank(rank: int, coord: str, batch, ckpt_dir: str, inbox,
+              out) -> None:
+    """One of :class:`RankPair`'s two gloo ranks over CUDA tensors on card
+    0.  It starts (imports, the card's context, the group) while the
+    parent works, then takes its inbox's messages in order: ``"go"`` for
+    12(b)'s steps (:func:`p12_rank`), 13(b)'s job (it builds, says it is
+    ready, and its own ``"go"`` comes after the parent's references,
+    :func:`p13_rank_two`), and None (leave) at any point.  Puts each
+    part's numbers on ``out``."""
     sys.path.insert(0, ROOT)
     try:
-        import hashlib
-
         import torch
 
-        from improved_body_parts_torch.ops import losses
         from improved_body_parts_torch.parallel import (
-            get_ruleset,
             initialize_distributed,
-            make_mesh,
-            mesh_topology,
-            shard_batch,
             shutdown_distributed,
         )
-        from improved_body_parts_torch.train import CheckpointManager
 
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device("cuda", 0)
         initialize_distributed(coord, 2, rank, device=dev, backend="gloo")
-        mesh = make_mesh(2, 1, device="cuda")
-        res = {}
-        for kind, rules in P12_ARMS:
-            state, step = p12_state(kind, dev, mesh, get_ruleset(rules))
-            full = {n: tuple(p.shape)
-                    for n, p in state.model.named_parameters()}
-            calls, fused = [], losses.focal_l2_fused
-            if not res:
-                losses.focal_l2_fused = first_calls(fused, 5, calls)
-            reset_focal()
-            try:
-                state, loss, gnorm = step(state, *shard_batch(batch, mesh))
-            finally:
-                losses.focal_l2_fused = fused
-            rec = dict(loss=float(loss), gnorm=float(gnorm),
-                       launches=focal_counts())
-            if calls:
-                hold_focal(calls, torch.tensor(
-                    p12_config(kind).train.nstack_weight, device=dev) * 0.25,
-                    f"rank {rank}'s calls at the per-rank shape",
-                    tag="[12b two ranks]")
-            if state.sharding is not None:
-                # every split parameter and its momentum hold their chunk
-                names = {id(p): n for n, p in
-                         state.model.named_parameters()}
-                moms = dict(zip(map(id, state.optimizer.params),
-                                state.optimizer.momentum))
-                chunks = []
-                for sp in state.sharding.splits:
-                    want = list(full[names[id(sp.param)]])
-                    want[sp.dim] //= sp.shards
-                    chunks.append(tuple(sp.param.shape) == tuple(want)
-                                  and tuple(moms[id(sp.param)].shape)
-                                  == tuple(want))
-                rec["split"] = (len(chunks), all(chunks))
-            if kind == "float64":
-                manager = CheckpointManager(ckpt_dir, async_save=False,
-                                            topology=mesh_topology(mesh))
-                manager.save(state, 0, float(loss), float(loss))
-                manager.close()
-                torch.distributed.barrier()
-                h = hashlib.sha256()
-                for k, v in state.model.state_dict().items():
-                    h.update(k.encode())
-                    h.update(v.detach().cpu().contiguous().numpy()
-                             .tobytes())
-                rec["sha256"] = h.hexdigest()
-            # numpy, not tensors: a tensor crosses the queue as a handle
-            # to this process's shared memory, gone once the rank exits
-            if rank == 0:
-                rec["bn"] = bn_stats(state)
-            res[(kind, rules)] = rec
-            del state, step
+        # the clock is CLOCK_MONOTONIC, the parent's too
+        out.put((rank, {"in_group": time.perf_counter()}))
+        if inbox.get(timeout=1800) == "go":
+            out.put((rank, p12_rank(rank, dev, batch, ckpt_dir)))
             torch.cuda.empty_cache()
-        out.put((rank, res))
+            job = inbox.get(timeout=1800)
+            if job is not None:
+                def ready():
+                    out.put((rank, {"ready": True}))
+                    check(inbox.get(timeout=600) == "go",
+                          "13b: the parent's references did not finish")
+
+                out.put((rank, p13_rank_two(rank, dev, job, ready)))
         shutdown_distributed()
     except BaseException as e:
         out.put((rank, dict(error=f"{type(e).__name__}: {e}")))
         raise
+
+
+class RankPair:
+    """The two gloo ranks that 12(b) and 13(b) share: one start of two
+    processes (~8-12 s of imports, the card's context and the group, ROADMAP
+    standing facts) where each part started its own.  Each rank reads its
+    own inbox (:func:`pair_rank`); :meth:`close` sends None and joins."""
+
+    def __init__(self, batch, ckpt_dir: str):
+        import multiprocessing as mp
+
+        from improved_body_parts_torch.parallel.mesh import free_port
+
+        self.t_spawn = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        self.out = ctx.Queue()
+        self.inboxes = [ctx.Queue() for _ in range(2)]
+        for q in self.inboxes:
+            # a rank that died unread must not hold this process's exit
+            # on a feeder thread writing into its full pipe
+            q.cancel_join_thread()
+        coord = f"127.0.0.1:{free_port()}"
+        self.procs = [ctx.Process(target=pair_rank, args=(
+            r, coord, batch, ckpt_dir, self.inboxes[r], self.out),
+            daemon=True) for r in range(2)]
+        for p in self.procs:
+            p.start()
+
+    def send(self, msg) -> None:
+        for q in self.inboxes:
+            q.put(msg)
+
+    def results(self, label: str, timeout_s: float = 600.0) -> dict:
+        """{rank: numbers} of the part the ranks ran last."""
+        got = {}
+        for _ in self.procs:
+            rank, rec = self.out.get(timeout=timeout_s)
+            got[rank] = rec
+        for rank, rec in sorted(got.items()):
+            check("error" not in rec, f"{label} rank {rank}: "
+                  f"{rec.get('error')}")
+        return got
+
+    def close(self) -> list:
+        """Let the ranks leave (kill one still alive after 120 s); their
+        exit codes."""
+        if any(p.is_alive() for p in self.procs):
+            self.send(None)
+        for p in self.procs:
+            p.join(120)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        return [p.exitcode for p in self.procs]
 
 
 def p12_config(kind: str):
@@ -4246,17 +4336,31 @@ def p12_gaps(rec, ref, exact):
 
 
 def two_ranks_one_card(dev, smi, records, work):
-    """12(b) and (c): two gloo ranks on the one card, each arm of
-    ``P12_ARMS`` against the plain step in its precision on the same 4
-    rows, then the float64 arm's checkpoint restored in this process
-    under ``adjust`` and ``refuse``."""
+    """12(b) and (c): two gloo ranks on the one card (a :class:`RankPair`,
+    started while this process runs the plain steps; their steps wait for
+    them), each arm of ``P12_ARMS`` against the plain step in its
+    precision on the same 4 rows, then the float64 arm's checkpoint
+    restored in this process under ``adjust`` and ``refuse``.  Returns
+    the pair, alive, for 13(b); closes it when a gate fails."""
+    ckpt_dir = os.path.join(work, "p12_ckpt")
+    cfg = p12_config("float64")
+    batch = p12_batch(records, cfg, 4, P12_WARM + P12_STEPS)
+    pair = RankPair(batch, ckpt_dir)
+    try:
+        two_ranks_gates(dev, smi, cfg, batch, ckpt_dir, pair)
+    except BaseException:
+        pair.close()
+        raise
+    return pair
+
+
+def two_ranks_gates(dev, smi, cfg, batch, ckpt_dir, pair):
+    """:func:`two_ranks_one_card`'s steps and gates."""
     import hashlib
-    import multiprocessing as mp
 
     import torch
 
     from improved_body_parts_torch.parallel import make_mesh
-    from improved_body_parts_torch.parallel.mesh import free_port
     from improved_body_parts_torch.train import (
         TopologyChanged,
         restore_checkpoint,
@@ -4265,8 +4369,6 @@ def two_ranks_one_card(dev, smi, records, work):
         reshard_on_topology_change,
     )
 
-    cfg = p12_config("float64")
-    batch = p12_batch(records, cfg, 4, P12_WARM + P12_STEPS)
     plain = {}
     for kind in dict(P12_ARMS):
         state, step = p12_state(kind, dev)
@@ -4275,31 +4377,18 @@ def two_ranks_one_card(dev, smi, records, work):
                            bn=bn_stats(state))
         del state, step
         torch.cuda.empty_cache()
-    ckpt_dir = os.path.join(work, "p12_ckpt")
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    coord = f"127.0.0.1:{free_port()}"
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=p12_rank, args=(r, coord, batch, ckpt_dir,
-                                                out)) for r in range(2)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        for _ in procs:
-            rank, rec = out.get(timeout=300)
-            got[rank] = rec
-    finally:
-        for p in procs:
-            p.join(120)
-            if p.is_alive():
-                p.kill()
-                p.join()
+    start_s = max(r["in_group"] for r in pair.results(
+        "12b start").values()) - pair.t_spawn
+    print(f"[12b two ranks] in their group {start_s:.1f} s after their "
+          f"spawn (imports, the card's context, the group; one start, "
+          f"13(b) uses them too), beside {t0 - pair.t_spawn:.1f} s of "
+          f"plain steps; this process waited "
+          f"{time.perf_counter() - t0:.1f} s for them")
+    t0 = time.perf_counter()
+    pair.send("go")
+    got = pair.results("12b", timeout_s=300)
     ranks_s = time.perf_counter() - t0
-    for rank, rec in sorted(got.items()):
-        check("error" not in rec, f"12b rank {rank}: {rec.get('error')}")
-    check(all(p.exitcode == 0 for p in procs),
-          f"12b: rank exit codes {[p.exitcode for p in procs]}")
     exact = plain["float64"]
     failed = []  # every arm prints its numbers before the gates fail
 
@@ -4367,8 +4456,8 @@ def two_ranks_one_card(dev, smi, records, work):
           f"refuses two ranks on one device), canonical at 2 rows a rank x "
           f"{cfg.skeleton.height}x{cfg.skeleton.width}, arms "
           f"{', '.join(' '.join(a) for a in P12_ARMS)}: ranks ran in "
-          f"{ranks_s:.1f} s (start, steps, save); one card, so no "
-          f"multi-card speed is claimed [{smi}]")
+          f"{ranks_s:.1f} s (steps, save; they started beside the plain "
+          f"steps); one card, so no multi-card speed is claimed [{smi}]")
 
     # (c) the two-rank checkpoint in one process
     saved = got[0][("float64", "replicated")]["sha256"]
@@ -4403,7 +4492,8 @@ def two_ranks_one_card(dev, smi, records, work):
 
 def multi_card_training(dev, smi, sync, work):
     """Phase 12: (a) world 1 under NCCL at full width; (b) two ranks on
-    the one card; (c) the reshard across topologies."""
+    the one card; (c) the reshard across topologies.  Returns the
+    launches, and (b)'s :class:`RankPair`, alive, for 13(b)."""
     import torch
 
     from improved_body_parts_torch.config import get_config
@@ -4421,13 +4511,13 @@ def multi_card_training(dev, smi, sync, work):
         launches = world_one_nccl(dev, smi, get_config("canonical"),
                                   records, sync)
         marks = [("a", time.perf_counter())]
-        two_ranks_one_card(dev, smi, records, work)
+        pair = two_ranks_one_card(dev, smi, records, work)
         marks.append(("b-c", time.perf_counter()))
     finally:
         shutdown_distributed()
     print(f"[12 multi-card] phase took {marks[-1][1] - t0:.1f} s "
           f"({laps(t0, marks)} s)")
-    return {"multi_card": launches}
+    return {"multi_card": launches}, pair
 
 
 # ---------------------------------------------------------------------------
@@ -4565,9 +4655,11 @@ def sha_of(module) -> str:
     return h.hexdigest()
 
 
-def p13_rank_two(rank, dev, job):
-    """13(b) on one of two ranks: the full-width ``canonical`` forward,
-    phase 7's lanes and the float64 distillation, over a (1, 2) mesh."""
+def p13_rank_two(rank, dev, job, ready):
+    """13(b) on one of :class:`RankPair`'s two ranks: the full-width
+    ``canonical`` forward, phase 7's lanes and the float64 distillation,
+    over a (1, 2) mesh.  ``ready()`` (which waits for the parent's go)
+    runs once the full-width predictor is built: its timed work waits."""
     import torch
 
     from improved_body_parts_torch.ops import losses
@@ -4583,9 +4675,9 @@ def p13_rank_two(rank, dev, job):
     base = fp32_predictor("canonical", None, P13_TALL[0], dev)
     pred = sharded_twin(base, mesh)
     tall = job["tall"]
-    # the parent's one-process references run while the ranks start;
-    # the card is the ranks' from here on
-    check(job["go"].wait(600), "13b: the parent's references timed out")
+    # the parent's one-process references run after this; the card is
+    # the ranks' from the go on
+    ready()
     pred.predict(tall)                                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4635,9 +4727,10 @@ def p13_rank_two(rank, dev, job):
     return res
 
 
-def p13_rank_four(rank, dev, job):
+def p13_rank_four(rank, dev, job, ready):
     """13(c) on one of four ranks: phase 7's lanes over a (2, 2) mesh,
-    two refusals, and a 640-row input over a (1, 4) mesh."""
+    two refusals, and a 640-row input over a (1, 4) mesh.  ``ready()``
+    (which waits for the parent's go) runs once the predictor is built."""
     import torch
 
     from improved_body_parts_torch.config import (
@@ -4651,6 +4744,7 @@ def p13_rank_four(rank, dev, job):
     res = {}
     base = fp32_predictor(job["config"], job["checkpoint"], job["net"], dev)
     pred = sharded_twin(base, make_mesh(2, 2, device=dev.type))
+    ready()
     lanes = p13_phase7_lanes(pred, job["images"], capture=False)
     lanes.pop("calls")
     res["lanes"] = lanes
@@ -4684,8 +4778,10 @@ def p13_rank_four(rank, dev, job):
     return res
 
 
-def p13_rank(rank: int, n: int, coord: str, job, out) -> None:
-    """One of ``n`` gloo ranks over CUDA tensors on card 0 (phase 13)."""
+def p13_rank(rank: int, n: int, coord: str, job, go, out) -> None:
+    """One of ``n`` = 4 gloo ranks over CUDA tensors on card 0 (13(c)):
+    it says ``"ready"`` on ``out`` once in the group with its predictor
+    built, and works on once ``go`` is set."""
     sys.path.insert(0, ROOT)
     try:
         import torch
@@ -4699,8 +4795,15 @@ def p13_rank(rank: int, n: int, coord: str, job, out) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device(job["device"])
         initialize_distributed(coord, n, rank, device=dev, backend="gloo")
-        body = p13_rank_two if n == 2 else p13_rank_four
-        out.put((rank, body(rank, dev, job)))
+
+        in_group = time.perf_counter()
+
+        def ready():
+            out.put((rank, ("ready", in_group, time.perf_counter())))
+            if not go.wait(1800):
+                raise TimeoutError("13c: no go within 1800 s")
+
+        out.put((rank, p13_rank_four(rank, dev, job, ready)))
         shutdown_distributed()
     except BaseException as e:
         out.put((rank, dict(error=f"{type(e).__name__}: {e}")))
@@ -4708,19 +4811,39 @@ def p13_rank(rank: int, n: int, coord: str, job, out) -> None:
 
 
 def start_ranks(n: int, job):
-    """:func:`p13_rank` on ``n`` spawned ranks; (processes, queue)."""
+    """:func:`p13_rank` on ``n`` spawned ranks; (processes, queue, the
+    go event).  They are daemons: a failed gate that ends the script
+    before :func:`join_ranks` ends them too."""
     import multiprocessing as mp
 
     from improved_body_parts_torch.parallel.mesh import free_port
 
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
+    go = ctx.Event()
+    t_spawn = time.perf_counter()
     coord = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=p13_rank, args=(r, n, coord, job, out))
-             for r in range(n)]
+    procs = [ctx.Process(target=p13_rank, args=(r, n, coord, job, go, out),
+                         daemon=True) for r in range(n)]
     for p in procs:
         p.start()
-    return procs, out
+    return procs, out, go, t_spawn
+
+
+def ranks_ready(procs, out, go, t_spawn, timeout_s: float = 600.0) -> str:
+    """Wait until each rank of :func:`start_ranks` said ``"ready"``;
+    what the start took and what this process waited, as a phrase."""
+    t0 = time.perf_counter()
+    times = []
+    for _ in procs:
+        rank, rec = out.get(timeout=timeout_s)
+        check(isinstance(rec, tuple) and rec[0] == "ready",
+              f"13: rank {rank} did not start: {rec}")
+        times.append(rec[1:])
+    in_group, built = (max(t) - t_spawn for t in zip(*times))
+    return (f"were in their group {in_group:.1f} s and built "
+            f"{built:.1f} s after their spawn; this process waited "
+            f"{time.perf_counter() - t0:.1f} s for them")
 
 
 def join_ranks(procs, out, timeout_s: float = 600.0) -> dict:
@@ -4779,13 +4902,14 @@ def check_lanes(label, sk, params, got, plain, ids, gts, smi):
     return ap
 
 
-def height_sharded_inference(dev, smi, ctx, sync, work):
+def height_sharded_inference(dev, smi, ctx, sync, work, pair):
     """Phase 13: (a) a one-rank NCCL mesh, payloads bit for bit; (b) two
-    gloo ranks on card 0: ``canonical`` at boxsize 1536, phase 7's
-    lanes, the float64 multi-rank distillation; (c) four gloo ranks:
-    phase 7's lanes over (2, 2), refusals, an uneven split over (1, 4);
-    (d) ``cli.stream_bench --devices 1``.  Returns the launches of the
-    sharded lane (rank 0 of (b)) and of the multi-rank distillation."""
+    gloo ranks on card 0 (12(b)'s ``pair``, closed here): ``canonical``
+    at boxsize 1536, phase 7's lanes, the float64 multi-rank
+    distillation; (c) four gloo ranks: phase 7's lanes over (2, 2),
+    refusals, an uneven split over (1, 4); (d) ``cli.stream_bench
+    --devices 1``.  Returns the launches of the sharded lane (rank 0 of
+    (b)) and of the multi-rank distillation."""
     import json as _json
 
     import torch
@@ -4802,6 +4926,22 @@ def height_sharded_inference(dev, smi, ctx, sync, work):
     t0 = time.perf_counter()
     sk = get_config(SYNTH_AP["config"]).skeleton
     ids, images, gts = val_set(ctx)
+    rng = np.random.default_rng(13)
+    tall = rng.integers(0, 256, (*P13_TALL, 3), dtype=np.uint8)
+    batch = p12_batch(sync["records"], p13_config("canonical_student"), 4,
+                      P12_WARM + P12_STEPS + 1)
+    job = dict(device=str(dev), work=work, smi=smi,
+               config=SYNTH_AP["config"],
+               checkpoint=ctx["checkpoint"], net=ctx["net"], images=images,
+               tall=tall, batch=batch,
+               uneven=rng.integers(0, 256, (*P13_UNEVEN, 3),
+                                   dtype=np.uint8))
+    # (b)'s ranks (12(b)'s) build their predictors, and (c)'s four
+    # ranks start (imports, the card's context, the group) and build
+    # theirs, beside the plain references and (a), which time nothing;
+    # all are ready before (b)'s first timed reading and work on "go"
+    pair.send(job)
+    quad = start_ranks(4, job)
     plain = fp32_predictor(SYNTH_AP["config"], ctx["checkpoint"],
                            ctx["net"], dev)
     params = plain.params
@@ -4834,23 +4974,14 @@ def height_sharded_inference(dev, smi, ctx, sync, work):
           "predictor's bit for bit")
     marks = [("a", time.perf_counter())]
 
-    # (b)'s ranks start (imports, the card's context, the group) while
-    # this process makes the one-process references: canonical at 1536
-    # and the distillation step; their timed work waits on ``go``
-    import multiprocessing as mp
-
-    rng = np.random.default_rng(13)
-    tall = rng.integers(0, 256, (*P13_TALL, 3), dtype=np.uint8)
-    batch = p12_batch(sync["records"], p13_config("canonical_student"), 4,
-                      P12_WARM + P12_STEPS + 1)
-    go = mp.get_context("spawn").Event()
-    job = dict(device=str(dev), work=work, smi=smi, go=go,
-               config=SYNTH_AP["config"],
-               checkpoint=ctx["checkpoint"], net=ctx["net"], images=images,
-               tall=tall, batch=batch,
-               uneven=rng.integers(0, 256, (*P13_UNEVEN, 3),
-                                   dtype=np.uint8))
-    ranks = start_ranks(2, job)
+    # (b): this process's one-process references, canonical at 1536 and
+    # the distillation step, once every rank is built and waiting
+    quad_start = ranks_ready(*quad)
+    t1 = time.perf_counter()
+    pair.results("13b ready")
+    print(f"[13 height-sharded] (c)'s four ranks {quad_start}; (b)'s two "
+          f"ranks built, this process waited {time.perf_counter() - t1:.1f}"
+          f" s for them")
     full = fp32_predictor("canonical", None, P13_TALL[0], dev)
     n_params = sum(p.numel() for p in full.model.parameters())
     check(n_params == 128_998_760, f"13b: canonical has {n_params} "
@@ -4871,8 +5002,10 @@ def height_sharded_inference(dev, smi, ctx, sync, work):
     del state, teacher, step
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    go.set()
-    two = join_ranks(*ranks)
+    pair.send("go")
+    two = pair.results("13b")
+    codes = pair.close()
+    check(codes == [0, 0], f"13b: rank exit codes {codes}")
     # (b) full width
     maps_max = max(float(np.abs(heat0).max()), float(np.abs(paf0).max()))
     for rank in (0, 1):
@@ -4934,7 +5067,8 @@ def height_sharded_inference(dev, smi, ctx, sync, work):
     marks.append(("b", time.perf_counter()))
 
     # (c) four ranks
-    four = join_ranks(*start_ranks(4, job))
+    quad[2].set()
+    four = join_ranks(quad[0], quad[1])
     for rank in range(4):
         check_lanes(f"13c sharded rank {rank}", sk, params,
                     four[rank]["lanes"], want, ids, gts, smi)
@@ -4991,6 +5125,9 @@ def height_sharded_inference(dev, smi, ctx, sync, work):
 # --------------------------------------------------------------------- #
 # each tool's main(argv) at full width: ``canonical``, seeded, 512x512
 P14_CONFIG, P14_SIZE = "canonical", 512
+#: 14(e)'s serve_bench event stream (its request records), which phase
+#: 17(c) reads with cli.request_report
+P14_SERVE_EVENTS = "serve_bench_events.jsonl"
 
 
 def measure_tools(dev, smi, work):
@@ -5220,7 +5357,7 @@ def measure_tools(dev, smi, work):
     serve = serve_bench.main(base + [
         "--sizes", str(P14_SIZE), "--requests", "4", "--clients", "1,4",
         "--baseline-clients", "4", "--rounds", "1", "--planted", "2",
-        "--telemetry-sink", "none",
+        "--telemetry-sink", os.path.join(out, P14_SERVE_EVENTS),
         "--out", os.path.join(out, "serve_bench_torch.json")])
     serve_launches = read_launches()
     arms = serve["serve"] + [serve["serve_at_peak_load"]]
@@ -5796,6 +5933,229 @@ def serving_tools(dev, smi, work):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 17: the fleet plane                                              #
+# --------------------------------------------------------------------- #
+# the JAX tool's five gates over workers of the full-width model (phase
+# 7's checkpoint: the canonical architecture, 128,998,760 parameters;
+# the seeded init keeps no peak on seeded noise, PERF.md), fp32 as
+# 10(c) (its tables through the wire equal the in-process ones bit for
+# bit), at phase 7's boxsize, 2 rounds of 4 clients x 4 requests
+P17_AUDIT = ["--predictor", "model", "--params-dtype", "fp32",
+             "--rounds", "2", "--clients", "4", "--requests", "4",
+             "--keep-workdir"]
+P17_HELD = 4        # (b): phase 7's val images, one at a time, ON arm
+
+
+def fleet_plane(dev, smi, ctx, work):
+    """Phase 17: (a) ``cli.fleet_audit`` over workers of phase 7's
+    checkpoint on the card: its five gates (the overhead verdict as its
+    rule applied to the printed rounds) and an exit code that follows
+    ``ok``; (b) ``P17_HELD`` of phase 7's val images (halved to fit the
+    square wire: the boxsize scales them back) served one at a time
+    through the audit's ON router, their person tables equal to the
+    same factory's in this process at max_batch 1, the decode kernels
+    launched once a request served in the ON arm's worker generations,
+    and this process's first decode batch held bit for bit;
+    (c) ``cli.trace_report`` on the audit's kept trace and shards, and
+    ``cli.request_report --strict`` on 14(e)'s event stream.  Returns
+    the workers' decode launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from improved_body_parts_torch.cli import (
+        REPORT_PREFIX,
+        fleet_audit,
+        request_report,
+        trace_report,
+    )
+    from improved_body_parts_torch.config import get_config
+    from improved_body_parts_torch.serve import DynamicBatcher
+    from improved_body_parts_torch.serve.artifacts import (
+        checkpoint_predictor,
+    )
+
+    import cv2
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "p17")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "fleet_obs_torch.json")
+    config, size = SYNTH_AP["config"], int(ctx["net"])
+    held = []
+    for im in val_set(ctx)[1][:P17_HELD]:
+        f = min(size / im.shape[0], size / im.shape[1])
+        held.append(cv2.resize(im, (int(im.shape[1] * f),
+                                    int(im.shape[0] * f)),
+                               interpolation=cv2.INTER_AREA))
+    argv = P17_AUDIT + ["--config", config, "--checkpoint",
+                        ctx["checkpoint"], "--size", str(size)]
+    served = {}
+
+    def serve_held(router):
+        # one client: each worker request holds one image
+        served["results"] = drive(router, held, clients=1)
+
+    # (a) the audit, its standard output kept to read the printed rounds
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            fleet_audit.main(argv + ["--device", dev.type, "--out", path],
+                             serve_hook=serve_held)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    text = buf.getvalue()
+    print(text, end="")
+    check(os.path.exists(path), f"17a fleet_audit wrote no report (exit "
+          f"{code!r})")
+    with open(path) as f:
+        rep = json.load(f)
+    for gate in ("conservation", "compiles", "scrape", "trace_stitch",
+                 "chaos"):
+        check(rep[gate]["ok"], f"17a fleet_audit {gate}: {rep[gate]}")
+    ov = rep["overhead"]
+    rounds = [ln.split() for ln in text.splitlines()
+              if ln.startswith("round ")]
+    on = [float(r[3]) for r in rounds]
+    off = [float(r[6]) for r in rounds]
+    per = [round((b - a) / b * 100.0, 3) for a, b in zip(on, off)]
+    med = round(statistics.median(per), 3) if per else None
+    check(len(rounds) == rep["protocol"]["rounds"]
+          and (on, off) == (ov["on_imgs_per_sec"], ov["off_imgs_per_sec"])
+          and per == ov["per_round_overhead_pct"]
+          and med == ov["paired_median_overhead_pct"]
+          and ov["ok"] == (med < 2.0),
+          f"17a fleet_audit: the overhead verdict {ov} is not its rule "
+          f"on the printed rounds (on {on}, off {off})")
+    check(rep["ok"] == all(rep[k]["ok"] for k in (
+        "overhead", "conservation", "compiles", "scrape", "trace_stitch",
+        "chaos")) and code == (0 if rep["ok"] else 1),
+        f"17a fleet_audit: exit code {code!r} with ok {rep['ok']}")
+    last = text.strip().splitlines()[-1]
+    check(last.startswith(REPORT_PREFIX)
+          and json.loads(last[len(REPORT_PREFIX):])["ok"] == rep["ok"],
+          f"17a fleet_audit: the last line is not its CLI_REPORT: {last}")
+    pm = rep["chaos"]["postmortem"]
+    print(f"[17a fleet_audit] {config} fp32 workers of phase 7's "
+          f"checkpoint at {size}^2, "
+          f"{rep['protocol']['rounds']} rounds of "
+          f"{rep['protocol']['clients']} clients x "
+          f"{rep['protocol']['requests_per_client']} requests: ON "
+          f"{ov['on_imgs_per_sec']} vs OFF {ov['off_imgs_per_sec']} "
+          f"imgs/s, per-round overhead {ov['per_round_overhead_pct']} %, "
+          f"paired median {ov['paired_median_overhead_pct']} % (gate < "
+          f"{ov['gate_pct']}: {'met' if ov['ok'] else 'missed'}; exit "
+          f"{code}); conservation frac {rep['conservation']['frac']}; "
+          f"compiles {rep['compiles']['parent_per_arm_delta']} / "
+          f"{rep['compiles']['worker_recompiles_post_warmup']}; scrape "
+          f"missing {rep['scrape']['families_missing']}; proc flows "
+          f"{rep['trace_stitch']['proc_flows']}; workers started and "
+          f"warmed in {rep['workers_started_and_warmed_s']} s [{smi}]")
+    print(f"[17a fleet_audit] chaos: worker 0 (pid "
+          f"{rep['chaos']['killed_pid']}) SIGKILLed with "
+          f"{rep['chaos']['in_flight_at_kill']} in flight, futures "
+          f"{rep['chaos']['futures_resolved']}; postmortem: "
+          + "; ".join(f"slot {e.get('slot')} seq {e.get('seq')} last hop "
+                      f"{e.get('last_completed_hop')}"
+                      for e in pm["in_flight"]) + f" [{smi}]")
+    marks = [("a", time.perf_counter())]
+
+    # (b) the held images against the same factory in this process
+    check(len(served.get("results") or []) == P17_HELD,
+          "17b: the held images were not served through the ON router")
+    # the model's workers are the A/B's; the ON arm's wrote sink shards
+    # (the chaos round's router is the JAX tool's constant predictor)
+    on_gens = [g for g in rep["worker_generations"]
+               if g["shard"].startswith("events.")]
+    check(len(on_gens) == 2 and all(g["stopped"] and g["served"] > 0
+                                    for g in on_gens),
+          f"17b: the ON arm's worker generations {on_gens}")
+    for g in on_gens:
+        for k, n in g["launches"].items():
+            check(n == g["served"], f"17b: worker pid {g['pid']} "
+                  f"({g['shard']}) launched {k} {n} times after its "
+                  f"warmup for {g['served']} requests served")
+    launches = {k: sum(g["launches"][k] for g in on_gens)
+                for k in DECODE_KERNELS}
+    check(launches == rep["worker_launches_after_warmup"],
+          f"17b: the ON arm's launches {launches} against the report's "
+          f"{rep['worker_launches_after_warmup']}")
+    for k in DECODE_KERNELS:
+        check(launches.get(k, 0) > 0, f"17b: {k} never launched in the "
+              "fleet's workers")
+    pred = checkpoint_predictor(config, ctx["checkpoint"],
+                                params_dtype="fp32", boxsize=size,
+                                device=dev)
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    check(n_params == 128_998_760, f"17b: {config} has {n_params} "
+          "parameters")
+    calls = {}
+
+    def warmup_thread(*_):
+        return threading.current_thread() is threading.main_thread()
+
+    capture_by_shape(pred, calls, skip=warmup_thread)
+    with DynamicBatcher(pred, max_batch=1, max_wait_ms=1) as batcher:
+        batcher.warmup([(size, size)], batch_sizes=(1,))
+        ref = drive(batcher, held, clients=1)
+    got = [people for people, _ in served["results"]]
+    same = sum(g == w for g, w in zip(got, ref))
+    check(same == P17_HELD, f"17b: {P17_HELD - same} of {P17_HELD} person "
+          "tables through the fleet differ from this process's at "
+          "max_batch 1")
+    check(len(calls) == 1, f"17b: decode batches captured at {list(calls)}")
+    sk = get_config(config).skeleton
+    hold_lane_call(sk, next(iter(calls.values())),
+                   "the first held image's batch in this process", smi,
+                   tag="[17b fleet tables]")
+    print(f"[17b fleet tables] {P17_HELD} of phase 7's val images at "
+          f"{held[0].shape[0]}x{held[0].shape[1]} served one at a time "
+          f"through the ON router: person tables equal to this process's "
+          f"checkpoint_predictor ({config}, phase 7's checkpoint, fp32, "
+          f"{n_params} parameters) at max_batch 1 ("
+          f"{[len(p) for p in got]} people); decode launches after "
+          f"warmup in the ON arm's {len(on_gens)} worker generations "
+          f"{launches}, each kernel once a request served "
+          f"{[g['served'] for g in on_gens]} [{smi}]")
+    del pred, calls
+    torch.cuda.empty_cache()
+    marks.append(("b", time.perf_counter()))
+
+    # (c) the two reports
+    trace = os.path.join(rep["workdir"], "trace.json")
+    summary = trace_report.main([trace])
+    pf = summary["proc_flows"] or {}
+    check(len(summary["shards"]) == 2 and pf.get("starts", 0) > 0
+          and pf.get("steps", 0) > 0 and pf.get("finishes", 0) > 0
+          and os.path.exists(summary["perfetto"]),
+          f"17c trace_report: shards {summary['shards']}, flows {pf}")
+    events = os.path.join(work, "p14", P14_SERVE_EVENTS)
+    try:
+        verdict = request_report.main([events, "--strict", "--top", "1"])
+    except SystemExit as e:
+        fail(f"17c request_report --strict on 14(e)'s events: exit {e.code}")
+    cov = verdict.get("chain_coverage") or {}
+    check(verdict["orphan_nodes"] == 0 and verdict["duplicate_nodes"] == 0
+          and verdict["duplicate_requests"] == 0 and verdict["requests"] > 0
+          and cov.get("min", 0.0) >= request_report.MIN_COVERAGE,
+          f"17c request_report: {verdict}")
+    print(f"[17c reports] trace_report: {len(summary['shards'])} worker "
+          f"shards stitched (shifts "
+          f"{[s['shift_ms'] for s in summary['shards']]} ms), proc flows "
+          f"{pf}, {summary['spans']} spans, Perfetto file written; "
+          f"request_report --strict on 14(e)'s serve_bench stream: "
+          f"{verdict['requests']} request records complete, 0 orphans, 0 "
+          f"duplicates, chain coverage {cov} [{smi}]")
+    shutil.rmtree(rep["workdir"], ignore_errors=True)
+    marks.append(("c", time.perf_counter()))
+    print(f"[17 fleet plane] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s)")
+    return {"fleet_audit": launches}
+
+
 def share_bytecode() -> str:
     """One bytecode cache, in a temporary directory, for this process and
     every Python process it starts.  Where ``PYTHONDONTWRITEBYTECODE`` is
@@ -6099,6 +6459,7 @@ def main() -> int:
 
     # ------------------------------ 7. learn -> AP, 8. accuracy tiers
     work = tempfile.mkdtemp(prefix="chip_smoke_synth_ap_")
+    pair = None     # 12(b)'s two ranks, which 13(b) takes over
     try:
         ap_launches, trained = learn_to_ap(dev, smi, work)
         grid_launches, grid_times = accuracy_tiers(dev, smi, trained)
@@ -6110,17 +6471,22 @@ def main() -> int:
         # ------------------ 11. live video streams, run telemetry
         streams = live_streams(dev, smi, trained, work)
         # ------------------------------ 12. multi-card training
-        streams.update(multi_card_training(dev, smi, sync_train, work))
+        multi_card, pair = multi_card_training(dev, smi, sync_train, work)
+        streams.update(multi_card)
         # ------------------------- 13. height-sharded inference
         streams.update(height_sharded_inference(dev, smi, trained,
-                                                sync_train, work))
+                                                sync_train, work, pair))
         # ------------------------- 14. the measuring tools
         streams.update(measure_tools(dev, smi, work))
         # ------------- 15. the training tools and model I/O
         streams.update(training_tools(dev, smi, trained, work))
         # ------------------------------- 16. the serving tools
         streams.update(serving_tools(dev, smi, work))
+        # --------------------------------- 17. the fleet plane
+        streams.update(fleet_plane(dev, smi, trained, work))
     finally:
+        if pair is not None:
+            pair.close()
         shutil.rmtree(work, ignore_errors=True)
 
     # ------------------------------------------------------- the result

@@ -27,7 +27,13 @@
   inference mode), ``cli.serve_bench`` (the batcher against
   sequential serving, and the thread- vs process-pool A/B) and
   ``cli.cascade_bench`` (student-first cascade serving against
-  teacher-only on a mixed easy / hard stream).
+  teacher-only on a mixed easy / hard stream);
+- the fleet plane's tools: ``cli.fleet_audit`` (worker telemetry's
+  overhead, conservation, compiles, scrape and crash postmortem on a live
+  2-worker ``ProcessRouter``), and two host-side readers that take no
+  ``--device``: ``cli.trace_report`` (a span trace and its worker shards
+  stitched into one Perfetto file) and ``cli.request_report`` (the
+  request records' causal trees, verified).
 
 Each runs on ``--device cuda`` unless asked for ``cpu``, and prints, as
 its last report, one line ``CLI_REPORT {json}`` with the device it ran on

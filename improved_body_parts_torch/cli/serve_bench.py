@@ -403,7 +403,7 @@ class ThreadWorkerEngine:
                 "stall_age_s": self.metrics.stall_age_s()}
 
 
-def bench_proc_ab(args, telemetry, rounds):
+def bench_proc_ab(args, telemetry, rounds, before_rounds=None):
     """Thread-pool vs process-pool A/B over the SAME predictor:
     ``EnginePool`` of N in-process worker threads vs ``ProcessRouter``
     of N worker processes on the shared-memory wire.  Interleaved
@@ -411,7 +411,9 @@ def bench_proc_ab(args, telemetry, rounds):
     accounting (``obs.CompileWatch``: a lane shape's first run, the
     port's compile) — with the twist that the process arm's first runs
     happen in the CHILDREN, so its delta adds every worker's own
-    in-process CompileWatch count read from the heartbeat block."""
+    in-process CompileWatch count read from the heartbeat block.
+    ``before_rounds`` (a callable) runs once both arms are warm, before
+    the first timed round."""
     import numpy as np
 
     from ..serve import EnginePool
@@ -457,6 +459,8 @@ def bench_proc_ab(args, telemetry, rounds):
     with thread_pool, router:
         thread_pool.warmup(sizes)
         router.warmup(sizes)
+        if before_rounds is not None:
+            before_rounds()
         telemetry.mark_warm("proc A/B warmup")
         for _ in range(rounds):
             c0 = compiles()
@@ -536,29 +540,34 @@ def bench_proc_ab(args, telemetry, rounds):
     return out
 
 
-def bench_proc_chaos(args):
+def chaos_router(args):
+    """The chaos arm's ``ProcessRouter`` (the constant predictor holding
+    each request 0.25 s), not started."""
+    from ..serve.router import ProcessRouter
+
+    return ProcessRouter(
+        "improved_body_parts_torch.serve.worker:constant_predictor",
+        num_workers=max(2, args.proc_workers),
+        spec_kwargs={"num_parts": 18, "n_people": 2, "delay_s": 0.25},
+        slots=16, max_image_hw=(64, 64), num_parts=18, max_people=8,
+        restart_after_s=0.3, probe_interval_s=0.05)
+
+
+def bench_proc_chaos(router):
     """SIGKILL across the process boundary mid-batch: every submitted
     future must RESOLVE (a result after pool failover, or a typed
     error — never a hang), the killed worker must come back through
     the supervisor lifecycle (>= 1 real respawn, fresh pid), and the
-    fleet keeps answering afterwards."""
+    fleet keeps answering afterwards.  ``router``: a
+    :func:`chaos_router`, started or not (its workers may have started
+    beside another arm's), stopped here."""
     import signal
 
     import numpy as np
 
-    from ..serve.router import ProcessRouter
-
-    workers = max(2, args.proc_workers)
     n_inflight = 6
     img = np.full((48, 48, 3), 7, dtype=np.uint8)
-    with ProcessRouter(
-            "improved_body_parts_torch.serve.worker:constant_predictor",
-            num_workers=workers,
-            spec_kwargs={"num_parts": 18, "n_people": 2,
-                         "delay_s": 0.25},
-            slots=16, max_image_hw=(64, 64), num_parts=18,
-            max_people=8, restart_after_s=0.3,
-            probe_interval_s=0.05) as router:
+    with router:
         router.submit(img).result(timeout=60)       # path probe
         pid0 = router.workers[0].worker_stats()["pid"]
         futs = [router.submit(img) for _ in range(n_inflight)]
@@ -766,7 +775,16 @@ def _proc_only(args, telemetry, report):
                 "per-round ratio verdict, per-arm first-run accounting "
                 "(workers count their own first runs in-process)."})
     rounds = args.proc_rounds or max(1, args.rounds)
-    report["proc_ab"] = bench_proc_ab(args, telemetry, rounds)
+    # the chaos arm's workers start beside the A/B's and are up before
+    # its first timed round (they idle through the rounds)
+    chaos = chaos_router(args).start()
+    try:
+        report["proc_ab"] = bench_proc_ab(
+            args, telemetry, rounds,
+            before_rounds=lambda: chaos.warmup([(64, 64)]))
+    except BaseException:
+        chaos.stop()
+        raise
     _write(args.out, report)
     telemetry.emit(
         "proc_ab", median_round_ratio=report["proc_ab"]["median_round_ratio"],
@@ -774,7 +792,7 @@ def _proc_only(args, telemetry, report):
     print(f"proc A/B: median ratio {report['proc_ab']['median_round_ratio']}"
           f" (multi_core_host={report['proc_ab']['multi_core_host']}, "
           f"verdict_ok={report['proc_ab']['verdict_ok']})", flush=True)
-    report["proc_chaos"] = bench_proc_chaos(args)
+    report["proc_chaos"] = bench_proc_chaos(chaos)
     report["recompiles_post_warmup"] = sum(
         report["proc_ab"]["per_arm_recompiles_post_warmup"].values())
     telemetry.emit("proc_chaos", **{

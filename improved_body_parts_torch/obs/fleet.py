@@ -20,7 +20,8 @@ boundary in both directions without any new IPC channel:
   :data:`TELEM_VERSION`) written under the same seqlock parity
   discipline the slot rows use — no pickling, no queues, readable at
   any moment by the parent.  The 4-float heartbeat survives
-  unchanged at its v1 offset.
+  unchanged at its v1 offset as the degenerate case (telemetry off →
+  only the heartbeat block moves).
 - **Parent side** (:class:`FleetRegistry`): merges every worker's
   snapshot block into the router's registry **at scrape time** under
   ``worker=``/``pid=`` labels, so one ``MetricsServer`` serves
@@ -64,7 +65,7 @@ import numpy as np
 from ..utils.meters import PercentileMeter
 from .events import NullSink
 from .registry import Registry
-from .trace import TraceRecorder
+from .trace import NullTraceRecorder, TraceRecorder
 
 # --------------------------------------------------------------------- #
 # telemetry block layout (float64 indices)                              #
@@ -248,17 +249,22 @@ class WorkerTelemetry:
     predictor's).  :meth:`publish` writes
     the whole snapshot into the telemetry block under seqlock parity;
     :meth:`record` appends one milestone to the flight-recorder ring.
-    Always on: the JAX package's ``enabled=False`` arm (the overhead
-    A/B of its ``tools/fleet_audit.py``) comes with that tool.
+
+    ``enabled=False`` is the explicit OFF arm of the overhead A/B
+    (``cli.fleet_audit``): the trace recorder is the null one, hop
+    meters / flight records / publishes are skipped, and only the
+    4-float heartbeat keeps moving — the degenerate case, chosen
+    deliberately so the A/B never degenerates to A/A.
     """
 
     def __init__(self, worker_idx: int, telem=None, rec=None, *,
-                 sink=None,
+                 enabled: bool = True, sink=None,
                  trace_capacity: int = 8192,
                  trace_t0: Optional[float] = None,
                  publish_min_interval_s: float = 0.05,
                  device="cpu"):
         self.worker_idx = int(worker_idx)
+        self.enabled = bool(enabled)
         self._telem = telem
         self._rec = rec
         self._sink = sink if sink is not None else NullSink()
@@ -267,7 +273,11 @@ class WorkerTelemetry:
 
         self.watch = CompileWatch(registry=self.registry,
                                   sink=self._sink).install()
-        self.trace = TraceRecorder(capacity=trace_capacity, t0=trace_t0)
+        if self.enabled:
+            self.trace: object = TraceRecorder(capacity=trace_capacity,
+                                               t0=trace_t0)
+        else:
+            self.trace = NullTraceRecorder()
         from .memory import DeviceMemory
 
         # the worker predictor's device: its allocator on a card, the
@@ -291,7 +301,7 @@ class WorkerTelemetry:
 
         self._pid = os.getpid()
         self._rec_count = 0
-        if rec is not None:
+        if self.enabled and rec is not None:
             # stamp the ring geometry so an exhumer never guesses it
             rec[0] += 1
             rec[2] = float(REC_SLOTS)
@@ -309,6 +319,8 @@ class WorkerTelemetry:
             self.errors += 1
 
     def observe_hops(self, device_s: float, decode_s: float) -> None:
+        if not self.enabled:
+            return
         self.hops["device"].update(max(0.0, float(device_s)))
         self.hops["decode"].update(max(0.0, float(decode_s)))
 
@@ -321,6 +333,8 @@ class WorkerTelemetry:
         """Device allocator stats — idle-tick cadence only (walking
         the allocator per request would be real overhead; the CPU
         backends no-op)."""
+        if not self.enabled:
+            return
         per_dev = self.memory.sample()
         if per_dev:
             self._dev_bytes = float(sum(d["bytes_in_use"]
@@ -334,7 +348,7 @@ class WorkerTelemetry:
         """Append one milestone under the ring's seqlock parity.  Cheap
         enough for the hot path: seven float stores."""
         rec = self._rec
-        if rec is None:
+        if rec is None or not self.enabled:
             return
         base = REC_HEADER + (self._rec_count % REC_SLOTS) * REC_WIDTH
         rec[0] += 1                    # odd: writing
@@ -359,7 +373,7 @@ class WorkerTelemetry:
         refresh at most once per ``publish_min_interval_s`` unless
         forced."""
         telem = self._telem
-        if telem is None:
+        if telem is None or not self.enabled:
             return False
         now = time.perf_counter()
         do_hops = force or now - self._last_publish >= self._publish_min
@@ -393,6 +407,19 @@ class WorkerTelemetry:
                 telem[off + 4] = float(s["p99"])
         telem[T_PARITY] += 1           # even: consistent
         return True
+
+    def flush_trace(self, path: Optional[str]) -> Optional[str]:
+        """Write the worker's trace ring to its per-worker span file
+        (``TraceRecorder.save``, which carries the ``t0_mono`` anchor);
+        same-axis stitching happens in ``cli.trace_report``.  Returns
+        the path written, or None when disabled, given no path, or when
+        the write fails (a full disk must not kill the serve loop)."""
+        if path and self.enabled and getattr(self.trace, "enabled", False):
+            try:
+                return self.trace.save(path)
+            except Exception:  # noqa: BLE001 — never raise into the
+                return None    # serve loop
+        return None
 
 
 # --------------------------------------------------------------------- #
@@ -546,8 +573,8 @@ class FleetRegistry:
         worker crashes lose their in-flight served-side counts, so the
         audit gate is ≥ 0.95 over a run with chaos in it.  Falls back to
         the 4-float heartbeat's served counter for workers that have not
-        published yet (a worker still starting, or one killed before
-        its first publish)."""
+        published (a worker still starting, one killed before its first
+        publish, or one with telemetry off)."""
         rows = self._rows() if rows is None else rows
         submitted = 0
         served = 0

@@ -117,7 +117,9 @@ class ProcessWorkerEngine:
     predictor, so the parent never pickles model state.  ``slots``
     bounds admission exactly like the batcher's ``max_queue``
     (``ServerOverloaded`` past it); ``max_image_hw`` / ``num_parts`` /
-    ``max_people`` fix the wire layout.
+    ``max_people`` fix the wire layout.  ``telemetry=False`` spawns the
+    worker with its telemetry off (only the heartbeat moves: the fleet
+    A/B's OFF arm); ``trace_path`` is the worker's span-shard file.
     """
 
     def __init__(self, spec: str, spec_kwargs: Optional[dict] = None, *,
@@ -133,7 +135,9 @@ class ProcessWorkerEngine:
                  crash_budget: int = 5,
                  warmup_timeout_s: float = 300.0,
                  metrics: Optional[ServeMetrics] = None,
-                 registry=None):
+                 registry=None,
+                 telemetry: bool = True,
+                 trace_path: Optional[str] = None):
         if slots < 1:
             raise ValueError(f"slots={slots} must be >= 1")
         self.spec = spec
@@ -153,6 +157,8 @@ class ProcessWorkerEngine:
         self.backoff_max_s = backoff_max_s
         self.crash_budget = crash_budget
         self.warmup_timeout_s = warmup_timeout_s
+        self.telemetry = bool(telemetry)
+        self.trace_path = trace_path
         self.metrics = metrics or ServeMetrics()
         if registry is not None:
             self.metrics.register_into(registry)
@@ -238,12 +244,18 @@ class ProcessWorkerEngine:
         # reads done-tokens from done_r; no feeder threads anywhere
         task_r, task_w = self._ctx.Pipe(duplex=False)
         done_r, done_w = self._ctx.Pipe(duplex=False)
+        # the parent run's identity rides into the worker shard header
+        # so the report tools can match shards to THIS run (and skip a
+        # stray shard from another one loudly)
+        run_id = (getattr(get_sink(), "run_meta", None)
+                  or {}).get("run_id")
         proc = self._ctx.Process(
             target=worker_main,
             args=(self.worker_idx, shm.name, self.slots, self.shapes,
                   self.dtypes, self.spec, self.spec_kwargs_json,
                   task_r, done_w, os.getpid(), self.sink_path,
-                  self.max_batch),
+                  self.max_batch, self.telemetry, self.trace_path,
+                  run_id),
             name=f"serve-worker-{self.worker_idx}", daemon=True)
         proc.start()
         # drop the parent's copies of the child-side ends so a dead
@@ -317,9 +329,21 @@ class ProcessWorkerEngine:
         with self._lock:
             if not self._running and self._proc is None:
                 return
-            self._running = False
+            was_running, self._running = self._running, False
             self._draining = True
-            proc, task_tx = self._proc, self._task_tx
+            proc, task_tx, rec = self._proc, self._task_tx, self._rec
+            in_flight = [(idx, req.seq)
+                         for idx, req in self._pending.items()]
+        if was_running and proc is not None and not proc.is_alive():
+            # the worker died before this stop reached it: the pool's
+            # probe saw the dead process and fenced the replica before
+            # the fetcher reported the death, and the fetcher now finds
+            # the engine stopped.  Exhume the flight ring here, before
+            # the teardown unmaps it.
+            proc.join(1.0)
+            with self._lock:
+                self.consecutive_failures += 1
+            self._exhume(proc, rec, in_flight)
         deadline = (None if drain_timeout_s is None
                     else time.perf_counter() + drain_timeout_s)
         while self._pending_count():
@@ -664,17 +688,28 @@ class ProcessWorkerEngine:
                 return
             self._running = False
             self.consecutive_failures += 1
-            exitcode = proc.exitcode if proc is not None else None
-            pid = proc.pid if proc is not None else None
             rec = self._rec
             in_flight = [(idx, req.seq)
                          for idx, req in self._pending.items()]
-        # exhume the flight recorder BEFORE failing the futures: the
-        # ring names the in-flight slot/seq and the last hop the dead
-        # worker completed — a SIGKILL leaves no other trace.  The
-        # region outlives the process (parent still maps it), and the
-        # reader tolerates a permanently-odd parity from a kill
-        # mid-write (torn=True, best-effort copy).
+        # exhume the flight recorder BEFORE failing the futures
+        exitcode = self._exhume(proc, rec, in_flight)
+        err = WorkerDied(
+            f"serve worker {self.worker_idx} died "
+            f"(exitcode={exitcode}) with work in flight")
+        for req in self._take_pending():
+            self._finish(req, error=err)
+
+    def _exhume(self, proc, rec, in_flight) -> Optional[int]:
+        """A dead worker's postmortem (``last_postmortem`` and the
+        ``worker_postmortem`` event) and its ``worker_died`` event, from
+        the flight ring ``rec``; returns its exit code.  The ring names
+        the in-flight slot/seq and the last hop the dead worker
+        completed — a SIGKILL leaves no other trace.  The region
+        outlives the process (the parent still maps it), and the reader
+        tolerates a permanently-odd parity from a kill mid-write
+        (torn=True, best-effort copy)."""
+        exitcode = proc.exitcode if proc is not None else None
+        pid = proc.pid if proc is not None else None
         try:
             flight = (read_flight_records(rec) if rec is not None
                       else {"records": [], "count": 0, "torn": False})
@@ -685,13 +720,8 @@ class ProcessWorkerEngine:
         except Exception:  # noqa: BLE001 — forensics must never block
             pass           # the failover path
         get_sink().emit("worker_died", worker=self.worker_idx,
-                        exitcode=exitcode,
-                        in_flight=self._pending_count())
-        err = WorkerDied(
-            f"serve worker {self.worker_idx} died "
-            f"(exitcode={exitcode}) with work in flight")
-        for req in self._take_pending():
-            self._finish(req, error=err)
+                        exitcode=exitcode, in_flight=len(in_flight))
+        return exitcode
 
     # ------------------------------------------------------------- finish
     def _pending_count(self) -> int:
@@ -789,6 +819,10 @@ class ProcessRouter:
     ``PolicyClient``, ``CascadeEngine`` lanes and ``StreamSession``
     sit on a ``ProcessRouter`` exactly as they would on a single
     batcher or a thread pool.
+
+    ``telemetry`` goes to every worker; ``trace_path`` hands worker *i*
+    the span shard ``f"{trace_path}.p{i + 1}"``, next to the parent's
+    own export at ``trace_path``.
     """
 
     def __init__(self, spec: str, num_workers: int = 2,
@@ -802,6 +836,8 @@ class ProcessRouter:
                  registry=None, slo=None,
                  qos_class: str = "interactive",
                  pool_kw: Optional[dict] = None,
+                 telemetry: bool = True,
+                 trace_path: Optional[str] = None,
                  staleness_s: float = 5.0,
                  **engine_kw):
         if num_workers < 1:
@@ -811,7 +847,13 @@ class ProcessRouter:
         self.workers = [
             ProcessWorkerEngine(
                 spec, spec_kwargs, worker_idx=i,
-                sink_path=sink_path, **engine_kw)
+                sink_path=sink_path, telemetry=telemetry,
+                # per-worker trace shards next to the parent export —
+                # the ".pN" suffix convention cli.trace_report
+                # auto-discovers
+                trace_path=(f"{trace_path}.p{i + 1}"
+                            if trace_path else None),
+                **engine_kw)
             for i in range(num_workers)]
         #: the parent-side merge point: worker telemetry blocks +
         #: router-side lifecycle state under ``worker=`` labels, the

@@ -327,7 +327,10 @@ def worker_main(worker_idx: int, shm_name: str, slots: int,
                 shapes, dtypes, spec: str, spec_kwargs_json: str,
                 task_rx, done_tx, parent_pid: int,
                 sink_path: Optional[str] = None,
-                max_batch: int = 4) -> None:
+                max_batch: int = 4,
+                telemetry: bool = True,
+                trace_path: Optional[str] = None,
+                run_id: Optional[str] = None) -> None:
     """Worker process entry (spawn target — module importable).
 
     ``task_rx`` / ``done_tx`` are the one-way pipe connections of the
@@ -339,15 +342,18 @@ def worker_main(worker_idx: int, shm_name: str, slots: int,
     bucket programs and arms the worker's own ``CompileWatch`` so
     post-warmup recompiles are counted IN the process that would pay
     them (published through the telemetry block; mirrored into the
-    heartbeat row).  A factory/attach failure
+    heartbeat row for the degenerate case).  A factory/attach failure
     answers ``("init_err", worker_idx, tb)`` and exits — the router's
     lifecycle discipline decides whether to respawn.
 
-    Telemetry is always on: the worker publishes its snapshot block and
-    flight records, and writes its own sink shard when ``sink_path`` is
-    given.  Its spans stay in the bounded ring whose counts the block
-    publishes; the JAX package's span-shard export and telemetry-off
-    arm come with the serve tools that set them (ROADMAP.md, Queue 1).
+    ``telemetry=False`` is the explicit OFF arm of the fleet-obs A/B
+    (``cli.fleet_audit``): null sink, null tracer, no snapshot
+    publishes, no flight records — only the 4-float heartbeat moves.
+    ``trace_path`` names this worker's span-file shard (the parent
+    composes the ``.pN`` suffix; flushed every :data:`TRACE_FLUSH_S` on
+    the busy path, on idle beats past it, and at the poison pill);
+    ``run_id`` stamps the sink shard with the parent run's identity so
+    the report tools can refuse a stray shard from another run.
     """
     shm = None
     try:
@@ -360,16 +366,20 @@ def worker_main(worker_idx: int, shm_name: str, slots: int,
         from ..obs.events import EventSink, NullSink, set_sink
 
         sink = None
-        if sink_path:
+        if sink_path and telemetry:
             # the multi-process rule: non-lead processes write
             # their own sink shard so streams never interleave
+            meta = {"role": "serve_worker", "worker": worker_idx}
+            if run_id:
+                meta["run_id"] = run_id
             sink = EventSink(sink_path + f".p{worker_idx + 1}",
-                             run_meta={"role": "serve_worker",
-                                       "worker": worker_idx})
+                             run_meta=meta)
             set_sink(sink)
             sink.emit("worker_start", worker=worker_idx,
                       pid=os.getpid(), spec=spec)
         else:
+            # the OFF arm installs the null sink EXPLICITLY (not "no
+            # sink happened to be configured") — the A/A hazard rule
             set_sink(NullSink())
         pred = load_predictor(spec, json.loads(spec_kwargs_json))
         serve = _build_serve_fn(pred)
@@ -381,13 +391,15 @@ def worker_main(worker_idx: int, shm_name: str, slots: int,
         telem = telem_view(shm.buf, slots, shapes, dtypes,
                            writeable=True)
         rec = rec_view(shm.buf, slots, shapes, dtypes, writeable=True)
-        wt = WorkerTelemetry(worker_idx, telem, rec, sink=sink,
+        wt = WorkerTelemetry(worker_idx, telem, rec, enabled=telemetry,
+                             sink=sink,
                              trace_t0=sink.t0 if sink is not None
                              else None,
                              device=getattr(pred, "device", "cpu"))
         from ..obs.trace import set_tracer
 
-        # worker-process tracer: the bounded span ring
+        # worker-process tracer: the bounded ring the trace shard
+        # flushes from; the null recorder on the OFF arm
         set_tracer(wt.trace)
     except BaseException:  # noqa: BLE001 — surfaced to the router
         try:
@@ -401,7 +413,8 @@ def worker_main(worker_idx: int, shm_name: str, slots: int,
 
     try:
         _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
-                    parent_pid, sink, serve, pred, wt, max_batch)
+                    parent_pid, sink, serve, pred, wt, max_batch,
+                    trace_path)
     finally:
         # live views make a plain close() raise BufferError at
         # interpreter teardown; detach quietly (the shm_ring worker
@@ -409,13 +422,21 @@ def worker_main(worker_idx: int, shm_name: str, slots: int,
         _quiet_close(shm)
 
 
+#: seconds between periodic worker trace-shard flushes (busy path);
+#: idle beats and the poison-pill exit also flush, so a clean stop
+#: never loses spans — only a crash does, which is what the flight
+#: recorder ring is for
+TRACE_FLUSH_S = 5.0
+
+
 def _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
                 parent_pid, sink, serve, pred, wt,
-                max_batch: int) -> None:
+                max_batch: int, trace_path: Optional[str]) -> None:
     served = 0
     watch = wt.watch
     tracer = wt.trace
     track = f"worker{worker_idx}-serve"
+    last_flush = time.perf_counter()
     burst = 0
 
     def beat(force: bool = False) -> None:
@@ -426,6 +447,10 @@ def _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
         # hop reservoirs — hot-loop cost); the idle tick forces, so a
         # quiescent parent reads CURRENT counters within one tick
         wt.publish(force=force)
+
+    def flush_trace(now: float) -> float:
+        wt.flush_trace(trace_path)
+        return now
 
     beat()
 
@@ -508,6 +533,9 @@ def _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
                     burst = 0
                 wt.sample_memory()
                 beat(force=True)
+                now = time.perf_counter()
+                if trace_path and now - last_flush > TRACE_FLUSH_S:
+                    last_flush = flush_trace(now)
                 if parent_pid and os.getppid() != parent_pid:
                     return  # orphaned: the router is gone
                 continue
@@ -518,6 +546,8 @@ def _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
             if burst:
                 wt.on_burst(burst)
             wt.publish(force=True)
+            if trace_path:
+                flush_trace(time.perf_counter())
             if sink is not None:
                 sink.emit("worker_stop", worker=worker_idx,
                           served=served,
@@ -533,6 +563,9 @@ def _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
                 # (mean requests drained back-to-back per wakeup)
                 wt.on_burst(burst)
                 burst = 0
+                now = time.perf_counter()
+                if trace_path and now - last_flush > TRACE_FLUSH_S:
+                    last_flush = flush_trace(now)
             beat()
         elif kind == "warmup":
             try:

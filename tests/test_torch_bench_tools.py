@@ -37,6 +37,7 @@ import torch
 
 from improved_body_parts_torch.cli import (
     e2e_bench,
+    fleet_audit,
     perf_audit,
     serve_bench,
     speed_test,
@@ -397,7 +398,7 @@ def test_cuda_without_a_card_raises(tmp_path, tool):
 
 
 @pytest.mark.parametrize("tool", [speed_test, perf_audit, train_bench,
-                                  e2e_bench, serve_bench])
+                                  e2e_bench, serve_bench, fleet_audit])
 def test_help(tool, capsys):
     with pytest.raises(SystemExit) as exc:
         tool.main(["--help"])

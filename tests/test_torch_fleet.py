@@ -11,12 +11,16 @@ JAX package's, on the CPU.
 - ``FleetRegistry``: the merged samples, ``/fleet`` document and
   ``/healthz`` block over published, unpublished and stale workers equal
   the JAX package's (``worker`` labels, stale marker, conservation).
+- The telemetry knobs: ``WorkerTelemetry(enabled=False)`` touches
+  neither the block nor the ring; ``flush_trace`` writes the JAX
+  package's span file with its ``t0_mono`` anchor, or returns None.
 - ``CompileWatch``: the port's compile event is the first run of an
   unwarmed (lane, shape, batch) in a ``Predictor``; the families and the
   ``recompile`` event are the JAX package's.
 - ``DeviceMemory``: on the CPU an explicit zero sampler; asked for the
   card on a host without one it raises; forensics groups live tensors.
 """
+import json
 import time
 
 import numpy as np
@@ -131,6 +135,82 @@ class TestTelemBlock:
     def test_flow_id_equal(self):
         for args in ((0, 0, 2), (1, 7, 12), (3, 4095, 2 ** 33 + 6)):
             assert tfleet.flow_id(*args) == jfleet.flow_id(*args)
+
+
+class TestTelemetryKnobs:
+    """``WorkerTelemetry(enabled=False)`` (the fleet A/B's OFF arm) and
+    ``flush_trace`` against the JAX package's."""
+
+    def test_disabled_arm_never_touches_the_block_or_the_ring(
+            self, fake_clock):
+        """The JAX package's ``test_disabled_arm_never_touches_the_block``
+        in both packages, the flight ring and the hop meters included:
+        only the served counters move (the heartbeat reads them)."""
+        out = {}
+        for name, obs, fleet in PKGS:
+            fake_clock()
+            telem = np.zeros(fleet.TELEM_FLOATS, np.float64)
+            rec = np.zeros(fleet.REC_FLOATS, np.float64)
+            wt = fleet.WorkerTelemetry(0, telem, rec, enabled=False)
+            wt.count_status(True)
+            wt.observe_hops(0.010, 0.001)
+            wt.record(fleet.REC_PICKUP, slot=1, seq=2)
+            wt.on_burst(3)
+            wt.sample_memory()
+            published = wt.publish(force=True)
+            wt.trace.add_span_rel("serve", 0.0, 0.001, track="w")
+            out[name] = (published, telem.tobytes(), rec.tobytes(),
+                         wt.served, wt.ok, wt.hops["device"].summary(),
+                         wt.trace.enabled, wt.trace.recorded)
+        assert out["torch"] == out["jax"]
+        published, telem, rec, served, ok, hops, tracing, spans = \
+            out["torch"]
+        assert not published and (served, ok) == (1, 1)
+        assert not any(np.frombuffer(telem)) and not any(
+            np.frombuffer(rec))
+        assert hops["count"] == 0 and not tracing and spans == 0
+
+    @pytest.mark.parametrize("case", ["written", "no_path", "disabled",
+                                      "unwritable"])
+    def test_flush_trace(self, tmp_path, case):
+        """Enabled with a path: the ring saved with its ``t0_mono``
+        anchor, the path returned, the file the JAX package's but for
+        the pid.  No path, the OFF arm, or a write that fails: None,
+        nothing raised, no file."""
+        got = {}
+        for name, obs, fleet in PKGS:
+            t0 = 1234.5
+            wt = fleet.WorkerTelemetry(1, None, None, trace_t0=t0,
+                                       enabled=case != "disabled")
+            wt.trace.add_span_abs("serve", t0 + 0.002, 0.003,
+                                  track="worker1-serve",
+                                  args={"slot": 0, "seq": 2})
+            wt.trace.flow_step("req", 7, track="worker1-serve", cat="proc",
+                               ts=0.0035)
+            path = {"no_path": None,
+                    "unwritable": str(tmp_path / "afile" / "t.json")}.get(
+                case, str(tmp_path / f"{name}.json.p2"))
+            if case == "unwritable":
+                (tmp_path / "afile").write_text("a file, not a directory")
+            ret = wt.flush_trace(path)
+            doc = None
+            if ret is not None:
+                with open(ret) as f:
+                    doc = json.load(f)
+                for ev in doc["traceEvents"]:
+                    ev.pop("pid", None)
+                    if ev["name"] == "process_name":
+                        ev.pop("args")      # the package's name
+            got[name] = (ret is None, doc)
+        assert got["torch"][1] == got["jax"][1]
+        none, doc = got["torch"]
+        assert none == (case != "written")
+        if case == "written":
+            assert doc["otherData"]["t0_mono"] == 1234.5
+            assert [e["name"] for e in doc["traceEvents"]
+                    if e["ph"] != "M"] == ["serve", "req"]
+        else:
+            assert not list(tmp_path.glob("*.json.p2"))
 
 
 class TestPostmortem:

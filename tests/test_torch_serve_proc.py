@@ -221,6 +221,53 @@ class TestProcessWorkerEngine:
             assert eng.restarts == 2
             assert _conserved(eng.metrics)
 
+    def test_postmortem_when_a_stop_beats_the_fetcher(self):
+        """The router's probe can see a SIGKILLed worker's process dead
+        and fence it (``stop``) before the fetcher reports the death; the
+        fetcher then finds the engine stopped.  The postmortem must not
+        depend on that order: the stop exhumes the ring of a worker it
+        finds dead.  The fetcher's report is held here until the stop
+        returns, the order under which ``last_postmortem`` stayed None
+        (``test_kill_mid_flight_fails_over_and_respawns``, once under
+        load)."""
+        import threading
+
+        from improved_body_parts_torch.obs.fleet import verify_postmortem
+
+        eng = tserve.ProcessWorkerEngine(SPEC, {"num_parts": NUM_PARTS,
+                                                "delay_s": 0.5},
+                                         **ENGINE_KW)
+        late = threading.Event()
+        report = eng._on_worker_death
+
+        def after_the_stop(gen):
+            late.wait(30)
+            report(gen)
+
+        eng._on_worker_death = after_the_stop
+        try:
+            eng.start()
+            eng.submit(_img(0)).result(timeout=60)   # worker is up
+            fut = eng.submit(_img(1), deadline_s=30.0)
+            assert _wait(lambda: any(
+                r["kind"] == "pickup" and r["seq"] == 4
+                for r in eng.flight_records()["records"]))
+            pid = eng.worker_stats()["pid"]
+            os.kill(pid, signal.SIGKILL)
+            assert _wait(lambda: not eng.health()["dispatcher_alive"])
+            eng.stop(drain_timeout_s=1.0)       # the probe's fence drain
+        finally:
+            late.set()
+            eng.stop()
+        with pytest.raises(Exception):
+            fut.result(timeout=60)
+        pm = eng.last_postmortem
+        ok, problems = verify_postmortem(pm)
+        assert ok, problems
+        assert (pm["pid"], pm["exitcode"]) == (pid, -signal.SIGKILL)
+        assert [e["seq"] for e in pm["in_flight"]] == [4]
+        assert eng.consecutive_failures == 1
+
     def test_crash_budget_stops_the_respawn_loop(self):
         eng = tserve.ProcessWorkerEngine(SPEC, {"num_parts": NUM_PARTS},
                                          crash_budget=2, backoff_base_s=0.0,

@@ -27,7 +27,9 @@ on the CPU at ``tiny`` / ``tiny_student``, 64-128 px, each tool's
   and every ``SYNTH_AP*.json`` of the reference at the repo root) are
   refused before any work, the work's entry patched to fail if reached;
   the port's defaults and the ``*_TORCH_S<n>.json`` names pass;
-- ``--device cuda`` without a card raises, and ``--help`` works.
+- ``--device cuda`` without a card raises (``cli.fleet_audit``'s model
+  predictor too), and ``--help`` works (also for ``cli.fleet_audit``,
+  ``cli.trace_report`` and ``cli.request_report``).
 """
 import contextlib
 import functools
@@ -44,8 +46,11 @@ import torch
 import improved_body_parts_torch
 from improved_body_parts_torch.cli import (
     cascade_bench,
+    fleet_audit,
+    request_report,
     swa_stage,
     synth_ap,
+    trace_report,
     tta_bench,
 )
 from improved_body_parts_torch.config import get_config
@@ -589,8 +594,9 @@ def test_default_artifact_names():
 @pytest.mark.parametrize("main,argv", [
     (cascade_bench.main, ["--student-config", "tiny_student",
                           "--teacher-config", "tiny", "--size", "64"]),
-    (tta_bench.main, ["--ab", "--config", "tiny", "--size", "64"])],
-    ids=["cascade_bench", "tta_ab"])
+    (tta_bench.main, ["--ab", "--config", "tiny", "--size", "64"]),
+    (fleet_audit.main, ["--config", "tiny", "--size", "64"])],
+    ids=["cascade_bench", "tta_ab", "fleet_audit"])
 def test_device_cuda_without_a_card_raises(tmp_path, main, argv):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the CPU refusal is not reachable")
@@ -601,8 +607,14 @@ def test_device_cuda_without_a_card_raises(tmp_path, main, argv):
 
 @pytest.mark.parametrize("main,flags", [
     (cascade_bench.main, ("--target-ratio", "--ap-tol", "--device")),
-    (tta_bench.main, ("--gate", "--planted", "--telemetry-sink"))],
-    ids=["cascade_bench", "tta_bench"])
+    (tta_bench.main, ("--gate", "--planted", "--telemetry-sink")),
+    (fleet_audit.main, ("--predictor", "--rounds", "--keep-workdir",
+                        "--params-dtype", "--device")),
+    (trace_report.main, ("--no-shards", "--json", "--out")),
+    (request_report.main, ("--strict", "--min-coverage", "--no-shards",
+                           "--top"))],
+    ids=["cascade_bench", "tta_bench", "fleet_audit", "trace_report",
+         "request_report"])
 def test_help_names_the_flags(main, flags):
     code, stdout = _run(main, ["--help"])
     assert code == 0
