@@ -4,7 +4,7 @@ learn->AP loop, the accuracy tiers of inference, serving beyond one
 batcher (replica pool, cascade, process router), live video streams
 with the run telemetry, multi-card training, height-sharded inference,
 the tools that measure the port, the training tools and model I/O, the
-serving tools, and the fleet plane.
+serving tools, the fleet plane, and the chaos plane.
 
     python3 chip_smoke.py
 
@@ -396,6 +396,31 @@ released before phase 6, so phase 6's peak memory is its own;
    shards stitched, flow starts, steps and finishes > 0, the Perfetto
    file written; ``cli.request_report --strict`` on 14(e)'s event
    stream: exit 0, no orphan or duplicate, chain coverage >= 0.95.
+18. the chaos plane, in this process: (a) ``cli.chaos_serve --config
+   canonical --strict`` (``main(argv)``; the JAX tool's other defaults: 3
+   replicas of a seeded ``canonical``, 128,998,760 parameters, behind
+   ``cli.e2e_bench.PlantedModel`` with 1 planted person, 128x128
+   traffic, 6 requests an injection, 2 streams x 8 frames, an 8 s wedge
+   timeout; replica 1 on the host-pool lane): the seven injections in
+   the JAX order (wedged fetcher, poisoned program, killed decode pool,
+   replica hard-stop mid-stream, latency spike, worker SIGKILL through a
+   ``constant_predictor`` ``ProcessRouter``, fastpath mid-skip-run),
+   ``ok`` and exit 0, no lost future, 0 first runs after warmup, no
+   leaked thread or child, the fastpath ledgers exact (the migrated
+   stream's one failure, shed frames dropped, a frame migrated), the
+   postmortem verified, the ``CLI_REPORT`` line last with the launches
+   the counters read; each injection's recovery s, the fence reasons
+   and the futures ledger printed; (b) through the wrapped
+   ``chaos_serve.replica_predictor``, the three decode kernels bit for
+   bit on the first batch a device-decode replica served after warmup,
+   ``topk_peaks`` and ``limb_pair_stats`` on the host-pool replica's
+   first compact batch, every decode kernel launched in the sweep; (c)
+   ``cli.telemetry_report`` on (a)'s event stream (one run, seven
+   ``injection_done`` events, the ``ok`` verdict event, 0 first runs)
+   and on 11(e)'s fit stream (its windows reach the fit's last step, a
+   bottleneck verdict, the wait + compute split printed), and
+   ``cli.history_report --strict`` on 11(e)'s history shards (exit 0,
+   as many ticks as the store's samples).
 
 Then one JSON line with every kernel's numbers (``launches`` are phase
 7's learn->AP run: the focal kernels in its training, the decode kernels
@@ -410,15 +435,16 @@ phase 11's as ``stream``, ``stream_fastpath``, ``stream_pool`` and
 ``e2e_bench`` and ``serve_bench``, phase 15's as ``upstream_import``
 and ``ckpt_bench``, phase 16's as ``cascade_bench`` and ``tta_ab`` (the
 grid's compact lane: no assembly), phase 17's as ``fleet_audit`` (the
-workers' launches after warmup); the focal kernels' device ms a
-step at ``ae``'s and
-``final_384``'s shapes as ``ae_shape_device_ms`` and
-``final_384_shape_device_ms`` (inputs rotated past the L2), with
-``*_same_inputs_ms``, ``*_bound_ms`` and ``*_bound_by`` beside them; the decode kernels' times at phase 8's grid shape as
-``grid_shape_ms`` and ``grid_shape_device_ms``), the time every phase took,
-the ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or without the repository around it, the script exits non-zero and prints
-no result.  Every number it prints is measured on the card in this run.
+workers' launches after warmup), phase 18's as ``chaos_serve``; the
+focal kernels' device ms a step at ``ae``'s and ``final_384``'s
+shapes as ``ae_shape_device_ms`` and ``final_384_shape_device_ms``
+(inputs rotated past the L2), with ``*_same_inputs_ms``, ``*_bound_ms``
+and ``*_bound_by`` beside them; the decode kernels' times at phase 8's
+grid shape as ``grid_shape_ms`` and ``grid_shape_device_ms``), the time
+every phase took, the ``nvidia-smi`` line again, and last ``{"ok":
+true, "device": {...}}``.  Without a CUDA device, or without the
+repository around it, the script exits non-zero and prints no result.
+Every number it prints is measured on the card in this run.
 """
 from __future__ import annotations
 
@@ -3682,7 +3708,8 @@ def streams_over_a_pool(dev, smi, pred, frames, watch):
 
 
 def history_of_the_streams(smi, store, reg, path):
-    """Phase 11 (e), first half: the store sampled during (a)-(c)."""
+    """Phase 11 (e), first half: the store sampled during (a)-(c).
+    Returns the store's sample count (18(c) reads its shards again)."""
     from improved_body_parts_torch.obs import HistoryStore, MetricsServer
     from improved_body_parts_torch.serve import CapacityModel
 
@@ -3717,6 +3744,7 @@ def history_of_the_streams(smi, store, reg, path):
           f"{[round(p['mean_ms'], 2) for p in model.points]}, knee "
           f"{model.knee_qps} qps at objective {model.objective_ms} ms; "
           f"replicas for 100 qps: {need['replicas']} [{smi}]")
+    return doc["samples"]
 
 
 def fit_under_telemetry(dev, smi, ctx, work):
@@ -3867,7 +3895,9 @@ def live_streams(dev, smi, ctx, work):
                            sorted(captured, key=lambda s: -s[1])):
         hold_lane_call(pred.skeleton, captured[shape], f"a stream batch "
                        f"of the {name} bucket", smi, tag="[11d kernels]")
-    history_of_the_streams(smi, store, reg, hist_path)
+    # phase 18 reads the shards (and the fit's event stream) again
+    ctx["p11_history_samples"] = history_of_the_streams(smi, store, reg,
+                                                        hist_path)
     marks.append(("d + history", time.perf_counter()))
     del pred, captured
     torch.cuda.empty_cache()
@@ -6156,6 +6186,222 @@ def fleet_plane(dev, smi, ctx, work):
     return {"fleet_audit": launches}
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the chaos plane                                              #
+# --------------------------------------------------------------------- #
+# cli.chaos_serve at the JAX tool's defaults (3 replicas, 128x128, 6
+# requests an injection, 2 streams x 8 frames, the 8 s wedge timeout) on
+# the full-width model: canonical from its seeded init, 1 planted person
+# (PlantedModel: the whole forward runs, the maps hold a decodable person)
+P18_CHAOS = ["--config", "canonical", "--strict"]
+P18_PARAMS = 128_998_760
+
+
+def chaos_plane(dev, smi, ctx, work):
+    """Phase 18: (a) ``cli.chaos_serve`` at ``canonical`` on the card, its
+    gates (the seven injections in order, ``ok`` and exit 0, no lost
+    future, 0 first runs after warmup, no leaked thread or child, the
+    fastpath ledger exact, the postmortem verified, ``CLI_REPORT``
+    last); (b) the three decode kernels bit for bit on the first served
+    batch of a device-decode replica, ``topk_peaks`` and
+    ``limb_pair_stats`` on the host-pool replica's first compact batch
+    (captured through the wrapped ``replica_predictor``), every decode
+    kernel launched in the sweep; (c) ``cli.telemetry_report`` on (a)'s
+    events and on phase 11's fit stream, ``cli.history_report --strict``
+    on phase 11's history shards.  Returns the sweep's decode
+    launches."""
+    import contextlib
+    import io
+
+    from improved_body_parts_torch.cli import (
+        REPORT_PREFIX,
+        chaos_serve,
+        history_report,
+        telemetry_report,
+    )
+    from improved_body_parts_torch.config import get_config
+
+    # phase 17's serving threads are gone before the leak scan's baseline
+    join_serve_threads()
+    t0 = time.perf_counter()
+    out = os.path.join(work, "p18")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "serve_chaos_torch.json")
+
+    # the first decode_maps batch a device-decode replica serves, and the
+    # first compact_maps batch of the host-pool replica 1; the pool's
+    # warmup dispatches on this thread, served batches on the replicas'
+    # dispatcher threads
+    calls = {"decode": {}, "compact": {}}
+    made, make = [], chaos_serve.replica_predictor
+
+    def on_this_thread(*_):
+        return threading.current_thread() is threading.main_thread()
+
+    def replica(*args, **kw):
+        pred = make(*args, **kw)
+        if len(made) == 1:
+            capture_by_shape(pred, calls["compact"], method="compact_maps",
+                             skip=on_this_thread)
+        else:
+            capture_by_shape(pred, calls["decode"], skip=on_this_thread)
+        made.append(pred)
+        return pred
+
+    # (a) the sweep, its standard output kept for the CLI_REPORT line
+    reset_launches()
+    chaos_serve.replica_predictor = replica
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                chaos_serve.main(P18_CHAOS + ["--device", dev.type,
+                                              "--out", path])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+    finally:
+        chaos_serve.replica_predictor = make
+        text = buf.getvalue()
+        print(text, end="")       # the sweep's checks, even if it raised
+    launches = read_launches()
+    check(code == 0 and os.path.exists(path),
+          f"18a chaos_serve: exit {code!r} (--strict: a check failed)")
+    with open(path) as f:
+        rep = json.load(f)
+    kinds = [i["kind"] for i in rep["injections"]]
+    check(kinds == list(chaos_serve.KINDS),
+          f"18a chaos_serve: injections {kinds}")
+    check(rep["ok"] and rep["checks_failed"] == 0,
+          f"18a chaos_serve: failed checks {rep['failed_checks']}")
+    check(rep["parameters"] == P18_PARAMS and len(made) == rep["replicas"]
+          == 3, f"18a chaos_serve: {rep['parameters']} parameters, "
+          f"{len(made)} replicas built")
+    fut = rep["futures"]
+    check(fut["lost"] == 0, f"18a chaos_serve: lost futures {fut}")
+    check(rep["recompiles_post_warmup"] == 0, f"18a chaos_serve: "
+          f"{rep['recompiles_post_warmup']} first runs after warmup")
+    check(rep["leaked_threads"] == [] and rep["leaked_children"] == [],
+          f"18a chaos_serve: leaked threads {rep['leaked_threads']}, "
+          f"children {rep['leaked_children']}")
+    by_kind = {i["kind"]: i for i in rep["injections"]}
+    fp = by_kind["fastpath_mid_skip_run"]
+    check(fp["migrate_stream"]["exact"] is True
+          and fp["shed_stream"]["exact"] is True
+          and fp["migrate_stream"]["failed"] == 1
+          and fp["shed_stream"]["dropped"] >= 1
+          and fp["frames_migrated"] >= 1,
+          f"18a chaos_serve: fastpath ledgers {fp['migrate_stream']} / "
+          f"{fp['shed_stream']}, {fp['frames_migrated']} migrated")
+    sk = by_kind["worker_sigkill"]
+    check(sk["postmortem_ok"], f"18a chaos_serve: postmortem "
+          f"{sk['postmortem_problems']}")
+    last = text.strip().splitlines()[-1]
+    check(last.startswith(REPORT_PREFIX)
+          and json.loads(last[len(REPORT_PREFIX):])["ok"] is True,
+          f"18a chaos_serve: the last line is not its CLI_REPORT: {last}")
+    cli_launches = json.loads(last[len(REPORT_PREFIX):])["launches"]
+    check(all(cli_launches[k] == n for k, n in launches.items()),
+          f"18a chaos_serve: CLI_REPORT launches {cli_launches} against "
+          f"the counters' {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"18a chaos_serve: {k} never launched in the sweep")
+    recov = {k: i.get("recovery_s") for k, i in by_kind.items()
+             if "recovery_s" in i}
+    fences = {k: i.get("fence_reason") for k, i in by_kind.items()
+              if "fence_reason" in i}
+    print(f"[18a chaos_serve] canonical ({rep['parameters']} parameters, "
+          f"seeded, 1 planted person) x {rep['replicas']} replicas at "
+          f"{rep['size']}^2, {rep['requests_per_phase']} requests an "
+          f"injection, {rep['streams']} streams x "
+          f"{rep['frames_per_stream']} frames, wedge timeout "
+          f"{rep['wedge_timeout_s']} s: recovery s {recov}; fence reasons "
+          f"{fences}; futures {fut['tracked']} tracked, "
+          f"{fut['resolved_ok']} ok, {fut['resolved_error']} typed errors "
+          f"{fut['errors_by_type']}, {fut['lost']} lost; 0 first runs "
+          f"after warmup; no leaked thread or child; decode launches "
+          f"{launches} [{smi}]")
+    print(f"[18a chaos_serve] fastpath: migrate {fp['migrate_stream']}, "
+          f"shed {fp['shed_stream']}, {fp['frames_migrated']} migrated; "
+          f"sigkill: pid {sk['killed_pid']} -> {sk['respawned_pid']}, "
+          f"postmortem {sk['postmortem_in_flight']} in flight, last hop "
+          f"{sk['postmortem_last_hop']}; latency spike max wait "
+          f"{by_kind['latency_spike']['max_wait_s']} s, policy "
+          f"{by_kind['latency_spike']['policy']} [{smi}]")
+    marks = [("a", time.perf_counter())]
+
+    # (b) the decode kernels on the sweep's captured batches
+    sk_cfg = get_config("canonical").skeleton
+    check(len(calls["decode"]) == 1 and len(calls["compact"]) == 1,
+          f"18b: captured decode batches at {list(calls['decode'])}, "
+          f"compact at {list(calls['compact'])}")
+    hold_lane_call(sk_cfg, next(iter(calls["decode"].values())),
+                   "a device-decode replica's first served batch", smi,
+                   tag="[18b kernels]")
+    hold_lane_call(sk_cfg, next(iter(calls["compact"].values())),
+                   "the host-pool replica's first compact batch", smi,
+                   tag="[18b kernels]")
+    del made, calls
+    marks.append(("b", time.perf_counter()))
+
+    # (c) the offline readers
+    events = os.path.splitext(path)[0] + "_events.jsonl"
+    lines = strict_json_lines(events)
+    summary = telemetry_report.main([events])
+    names = [e["event"] for e in lines]
+    done = [e["kind"] for e in lines if e["event"] == "injection_done"]
+    verdict = [e for e in lines if e["event"] == "chaos_serve_verdict"]
+    check(summary["previous_runs_in_file"] == 0
+          and summary["run"].get("tool") == "chaos_serve"
+          and names.count("run_start") == 1
+          and done == list(chaos_serve.KINDS)
+          and len(verdict) == 1 and verdict[0]["ok"] is True
+          and summary["recompiles_post_warmup"] == 0
+          and summary["warmup_complete_t"] is not None,
+          f"18c telemetry_report on (a)'s events: {len(done)} "
+          f"injection_done, verdicts {verdict}, summary run "
+          f"{summary['run']}")
+    fit_events = os.path.join(work, "p11_events.jsonl")
+    fit = telemetry_report.main([fit_events])
+    steps = [e for e in strict_json_lines(fit_events)
+             if e["event"] == "train_step"]
+    check(fit["windows"] == len(steps) == FIT_STEPS // 4
+          and steps[-1]["step"] == FIT_STEPS,
+          f"18c telemetry_report on 11(e)'s fit: {fit['windows']} windows, "
+          f"last step {steps[-1]['step'] if steps else None}, expected "
+          f"{FIT_STEPS} steps in windows of 4")
+    check(fit["verdict"] in ("input-bound", "mixed (input pressure)",
+                             "compute-bound"),
+          f"18c telemetry_report: verdict {fit['verdict']!r}")
+    hist = os.path.join(work, "p11_history.jsonl")
+    try:
+        hrep = history_report.main([hist, "--strict"])
+    except SystemExit as e:
+        fail(f"18c history_report --strict on 11(e)'s shards: exit {e.code}")
+    ver = hrep["verifier"]
+    check(ver["ok"] and ver["ticks"] == ctx["p11_history_samples"],
+          f"18c history_report: verifier {ver}, 11(e)'s store held "
+          f"{ctx['p11_history_samples']} samples")
+    att = fit["attribution"]
+    print(f"[18c readers] telemetry_report on (a)'s stream: 1 run, "
+          f"{len(done)} injection_done, verdict ok, "
+          f"{summary['serve_events']} serve events, 0 first runs after "
+          f"warmup; on 11(e)'s fit: {fit['windows']} windows to step "
+          f"{steps[-1]['step']}, step p50 "
+          f"{fit['step_seconds']['p50'] * 1e3:.2f} ms, data wait "
+          f"{att['data_wait_s']} s + compute {att['compute_s']} s "
+          f"(wait {att['data_wait_frac']}), verdict {fit['verdict']}; "
+          f"history_report --strict on 11(e)'s shards: ok, "
+          f"{ver['shards']} shard(s), {ver['ticks']} ticks = the store's "
+          f"samples, {ver['series_declared']} series, gaps "
+          f"{ver['gaps_persisted']} persisted / {ver['gaps_redetected']} "
+          f"re-detected [{smi}]")
+    marks.append(("c", time.perf_counter()))
+    print(f"[18 chaos plane] phase took {marks[-1][1] - t0:.1f} s "
+          f"({laps(t0, marks)} s) [{smi}]")
+    return {"chaos_serve": launches}
+
+
 def share_bytecode() -> str:
     """One bytecode cache, in a temporary directory, for this process and
     every Python process it starts.  Where ``PYTHONDONTWRITEBYTECODE`` is
@@ -6484,6 +6730,8 @@ def main() -> int:
         streams.update(serving_tools(dev, smi, work))
         # --------------------------------- 17. the fleet plane
         streams.update(fleet_plane(dev, smi, trained, work))
+        # --------------------------------- 18. the chaos plane
+        streams.update(chaos_plane(dev, smi, trained, work))
     finally:
         if pair is not None:
             pair.close()

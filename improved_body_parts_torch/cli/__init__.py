@@ -33,7 +33,14 @@
   2-worker ``ProcessRouter``), and two host-side readers that take no
   ``--device``: ``cli.trace_report`` (a span trace and its worker shards
   stitched into one Perfetto file) and ``cli.request_report`` (the
-  request records' causal trees, verified).
+  request records' causal trees, verified);
+- the chaos plane: ``cli.chaos_serve`` (seven faults injected into a
+  replica pool serving submits, hedged submits and stream sessions:
+  zero lost futures, no first run after warmup, no leak), and two more
+  host-side readers without ``--device``: ``cli.telemetry_report`` (an
+  event stream's steps, bottleneck verdict, first runs, worker shards
+  and history companion) and ``cli.history_report`` (a history store's
+  shards verified and rendered).
 
 Each runs on ``--device cuda`` unless asked for ``cpu``, and prints, as
 its last report, one line ``CLI_REPORT {json}`` with the device it ran on

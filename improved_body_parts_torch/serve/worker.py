@@ -523,6 +523,10 @@ def _serve_loop(worker_idx, header, views, hb, task_rx, done_tx,
                              ts=(t_pickup - tracer.t0)
                              + (t_done - t_pickup) / 2.0)
         served += 1
+        # the heartbeat counts a request before its answer leaves: a
+        # parent that reads worker_stats() once the future resolved must
+        # not see a count one short (the loop's beat() comes after)
+        hb[1] = float(served)
         done_tx.send(("done", worker_idx, idx, seq))
 
     while True:
